@@ -1,0 +1,40 @@
+"""Parameters from the JAX package into the port, leaf for leaf.
+
+The JAX model's parameter tree (nested dicts, layer-stacked ``[L, ...]``
+weights) crosses as numpy arrays: the caller converts each JAX leaf with
+``np.asarray``, so this module never imports JAX. The result has the
+same keys, shapes and dtypes, as torch tensors on ``device``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+
+def _leaf(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a)  # an owned, writable, C-contiguous copy
+    if a.dtype.name == "bfloat16":
+        # numpy's bfloat16 (ml_dtypes) has no torch counterpart to
+        # from_numpy: carry the bits through int16 and view them back
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(tree: Dict[str, Any],
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> Dict[str, Any]:
+    """Map a nested dict of numpy arrays to the same dict of tensors."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _leaf(node, device)
+
+    return walk(tree)

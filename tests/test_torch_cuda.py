@@ -1,0 +1,125 @@
+"""Card-only cases of the PyTorch port: the CUDA kernel and the paths that
+launch it. Every case skips without a CUDA card (decided in the
+fixture). The file imports no JAX, so it runs on the card as it is:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Tolerances: the kernel computes in fp32 and rounds only its output, so
+it is held to the plain version evaluated in fp32 on the same values,
+at 1e-4 for fp32 inputs (sums of up to ~1k terms taken in another order)
+and 1e-2 (atol and rtol) for bf16 outputs (one bf16 rounding, 2^-8
+relative).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ray_memory_management_tpu_torch.models import gpt
+from ray_memory_management_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_fwd,
+    launch_count,
+    reference_attention,
+    reset_launch_count,
+)
+from ray_memory_management_tpu_torch.serve.llm import LLMServer
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(bh, s, skv, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda n: torch.from_numpy(  # noqa: E731
+        rng.normal(size=(bh, n, d)).astype(np.float32)).to(device, dtype)
+    return mk(s), mk(skv), mk(skv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s,skv,d,causal", [
+    (64, 64, 64, True), (200, 200, 64, True), (200, 200, 64, False),
+    (64, 200, 64, True), (67, 67, 16, True), (130, 131, 32, False),
+    (96, 160, 128, True), (1, 77, 64, True)])
+def test_kernel_matches_plain(cuda, dtype, s, skv, d, causal):
+    q, k, v = _qkv(3, s, skv, d, dtype, cuda)
+    reset_launch_count()
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, save_lse=True)
+    torch.cuda.synchronize()
+    assert launch_count() == 1
+    assert out.dtype == dtype and lse.shape == (3, s, 1)
+    ref = reference_attention(q.float(), k.float(), v.float(), causal)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+    scores = (q.float() @ k.float().transpose(1, 2)) * d ** -0.5
+    if causal:
+        keep = (torch.arange(skv, device=cuda)[None, :]
+                <= torch.arange(s, device=cuda)[:, None] + (skv - s))
+        scores = scores.masked_fill(~keep, float("-inf"))
+    torch.testing.assert_close(lse[..., 0], torch.logsumexp(scores, -1),
+                               atol=1e-3, rtol=1e-4)
+
+
+def test_four_dim_route_and_count(cuda):
+    q, k, v = _qkv(6, 80, 80, 32, torch.bfloat16, cuda, seed=1)
+    reset_launch_count()
+    out4 = flash_attention(q.view(2, 3, 80, 32), k.view(2, 3, 80, 32),
+                           v.view(2, 3, 80, 32), causal=True)
+    out3 = flash_attention(q, k, v, causal=True)
+    assert launch_count() == 2
+    torch.testing.assert_close(out4.reshape(6, 80, 32), out3, rtol=0,
+                               atol=0)
+    plain = flash_attention(q, k, v, causal=True, use_kernel="off")
+    assert launch_count() == 2  # the explicit plain switch launches nothing
+    torch.testing.assert_close(out3.float(), plain.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(2, 32, 32, 64, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q.transpose(1, 2), k, v)
+    big = torch.zeros(2, 8, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_fwd(big, big, big)
+    with pytest.raises(NotImplementedError, match="backward kernels"):
+        flash_attention(q.requires_grad_(), k, v)
+
+
+def test_model_forward_kernel_matches_ref(cuda):
+    cfg = dataclasses.replace(gpt.PRESETS["test"], dtype=torch.float32)
+    params = gpt.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                             cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), device=cuda)
+    reset_launch_count()
+    out = gpt.forward(params, toks, cfg)
+    assert launch_count() == cfg.n_layers
+    ref = gpt.forward(params, toks, dataclasses.replace(cfg,
+                                                        attention="ref"))
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_llm_server_on_card_prefills_through_the_kernel(cuda):
+    srv = LLMServer(preset="test", max_batch_size=2, max_new_tokens=8)
+    try:
+        reset_launch_count()
+        out = [srv({"tokens": list(range(2, 2 + n))}) for n in (5, 70)]
+        stats = srv.stats()
+    finally:
+        srv.close()
+    assert srv.device.type == "cuda"
+    assert [len(r["tokens"]) for r in out] == [8, 8]
+    assert launch_count() == 2 * srv.cfg.n_layers
+    assert stats["kv"]["pages_in_use"] == 0
