@@ -6,25 +6,40 @@ versions.
 
 Phases, each of which must pass (any failure exits non-zero):
 
-  1. build    — compile every CUDA kernel of the serving path from
-                ``ray_memory_management_tpu_torch/csrc`` with nvcc.
+  1. build    — compile every CUDA kernel library of the port from
+                ``ray_memory_management_tpu_torch/csrc`` with nvcc, one
+                nvcc per source, all started together.
   2. kernels  — the flash attention forward kernel against its plain
-                version (``reference_attention``) at the serving path's
+                version (``reference_attention``, and ``logsumexp`` of the
+                plain scores for its lse output) at the serving path's
                 shapes (BH = 12, D = 64, S in {64, 992, 1024}, causal and
-                not, S != Skv, fp32 and bf16), with its time beside the
-                plain version's, SDPA's (a yardstick the port never
-                calls) and the card's bound.
+                not, S != Skv, fp32 and bf16) and at the training shape
+                (BH = 96, S = 1024); then the backward kernels (dq, dk/dv)
+                against ``reference_flash_bwd`` at the training shape in
+                bf16 and fp32, non-causal, S != Skv and odd lengths. Each
+                kernel's time is printed beside its plain version's, a
+                PyTorch yardstick the port never calls (SDPA forward; the
+                SDPA backward for the dq + dk/dv pair) and the card's
+                bound.
   3. forward  — ``gpt.forward`` of gpt2-small at B = 8, S = 1024 with the
                 kernel against ``attention="ref"``.
-  4. serve    — the main path: ``LLMServer`` (gpt2-small, paged
+  4. grad     — gradients of ``gpt.loss_fn`` for gpt2-small at B = 8,
+                S = 1024 with the kernels against ``attention="ref"``.
+  5. serve    — a main path: ``LLMServer`` (gpt2-small, paged
                 continuous batching) answers a burst of concurrent
                 requests; kernel launch counts are zeroed just before and
                 read just after. Two more bursts are timed (median
                 reported). Then a fp32 engine's greedy tokens are held
                 against ``gpt.generate``.
+  6. train    — the other main path: ``train_step_mfu`` takes 8 AdamW
+                steps of gpt2-small at B = 8, S = 1024 with the launch
+                counts zeroed just before and read just after; every
+                kernel must launch once per layer per step.
 
 It prints the card's name and power limit first, one JSON line of kernel
-figures before the last line, and as its last line
+figures before the last line (the forward kernel runs on both main paths:
+its entry gives the serving figures, and the training ones under keys
+ending in ``_train``), and as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or run from a
 directory that does not hold the repository, it exits non-zero and
 prints no result.
@@ -44,8 +59,19 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense tensor-core bf16
             "float32": 67e12}       # fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# lse is fp32 from both sides (only the order of the sums differs)
+LSE_TOL = dict(atol=1e-3, rtol=1e-4)
+# backward: fp32 to 1e-4 (the same fp32 sums, possibly in another
+# order); a bf16 output is one rounding (at most 2^-9 relative) of a fp32
+# sum of up to 1024 terms, so it is held to twice that relative to |ref|,
+# plus 1e-3 of the output's largest |ref| where the sum cancels to ~0
+BWD_TOL = {"float32": dict(rtol=1e-4, atol_of_max=0.0, atol=1e-4),
+           "bfloat16": dict(rtol=2.0 ** -8, atol_of_max=1e-3, atol=0.0)}
 BH, HEAD_DIM = 12, 64               # gpt2-small: 12 heads of 64, one row
 MAIN_CASE = ("bfloat16", 992, 992, True)  # the paged prefill's 992 bucket
+TRAIN_B, TRAIN_S = 8, 1024          # the training batch of train_step_mfu
+TRAIN_BH = TRAIN_B * 12             # attention rows per layer in training
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 
 
 def log(msg: str) -> None:
@@ -76,97 +102,250 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_bound(bh, s, skv, d, causal, dtype_name, itemsize):
-    """Least time (ms) for the work: each of q, k, v, o moved once, and the
-    QK^T and PV products over the (row, col) pairs the mask admits."""
+def admitted_pairs(s, skv, causal):
+    """(row, col) pairs of one head that the mask admits."""
+    if not causal:
+        return s * skv
     off = skv - s
-    if causal:
-        pairs = sum(min(skv, max(0, r + off + 1)) for r in range(s))
-    else:
-        pairs = s * skv
-    nbytes = (2 * bh * s * d + 2 * bh * skv * d) * itemsize
-    ops = 4 * bh * pairs * d
+    return sum(min(skv, max(0, r + off + 1)) for r in range(s))
+
+
+def _bound(nbytes, ops, dtype_name):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops)
 
 
+def attention_bound(bh, s, skv, d, causal, dtype_name, itemsize,
+                    save_lse=False):
+    """Least time (ms) for the forward: each of q, k, v, o (and lse) moved
+    once, and the QK^T and PV products over the pairs the mask admits."""
+    nbytes = (2 * bh * s * d + 2 * bh * skv * d) * itemsize
+    nbytes += 4 * bh * s if save_lse else 0
+    ops = 4 * bh * admitted_pairs(s, skv, causal) * d
+    return _bound(nbytes, ops, dtype_name)
+
+
+def backward_bound(kernel, bh, s, skv, d, causal, dtype_name, itemsize):
+    """Least time (ms) for one backward kernel. dq reads q, dO, k, v, lse
+    and delta and writes dq, and runs 3 products (QK^T, dO V^T, ds K) over
+    the admitted pairs; dk/dv reads the same and writes dk and dv, and
+    runs 4 (QK^T, dO V^T, p^T dO, ds^T Q)."""
+    rows_s, rows_kv, products = ((3, 2, 3) if kernel == "dq" else (2, 4, 4))
+    nbytes = (rows_s * bh * s * d + rows_kv * bh * skv * d) * itemsize
+    nbytes += 2 * 4 * bh * s  # lse and delta, fp32
+    ops = 2 * products * bh * admitted_pairs(s, skv, causal) * d
+    return _bound(nbytes, ops, dtype_name)
+
+
+def bwd_close(got, ref, dtype_name):
+    """(max abs error, ok) under BWD_TOL for one backward output."""
+    t = BWD_TOL[dtype_name]
+    err = (got.float() - ref).abs()
+    limit = (t["atol"] + t["atol_of_max"] * ref.abs().max()
+             + t["rtol"] * ref.abs())
+    return err.max().item(), bool((err <= limit).all())
+
+
 # ------------------------------------------------------------------ phases
 def phase_build():
+    """One nvcc per source, all started together; returns the wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from ray_memory_management_tpu_torch.ops import _build
 
-    path, seconds, compiler_out = _build.build("flash_attention_fwd")
-    for line in compiler_out.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
-    log(f"[build] {path.name}: nvcc {seconds:.2f} s")
-    return seconds
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(_build.build, SOURCES))
+    wall = time.perf_counter() - t0
+    for name, (path, seconds, compiler_out) in zip(SOURCES, built):
+        for line in compiler_out.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
+        log(f"[build] {name}: {path.name}, nvcc {seconds:.2f} s")
+    log(f"[build] {len(SOURCES)} libraries in {wall:.2f} s wall")
+    return wall
+
+
+def _sdpa_kwargs(device, s, skv, causal):
+    import torch
+
+    if causal and s != skv:  # SDPA aligns is_causal top-left
+        mask = (torch.arange(skv, device=device)[None, :]
+                <= torch.arange(s, device=device)[:, None] + (skv - s))
+        return {"attn_mask": mask}
+    return {"is_causal": causal}
 
 
 def phase_kernels(device):
+    """The forward kernel, o and lse, in every case; timed beside its plain
+    version, SDPA and its bound. Returns (rows, serving main row, training
+    shape row)."""
     import torch
     import torch.nn.functional as F
 
     from ray_memory_management_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, reference_attention)
+        flash_attention_fwd, reference_attention, reference_lse)
 
     cases = []
     for dtype_name in ("float32", "bfloat16"):
         for s in (64, 992, 1024):
             for causal in (True, False):
-                cases.append((dtype_name, s, s, causal))
+                cases.append((dtype_name, BH, s, s, causal))
         for s, skv in ((64, 1024), (992, 1024)):
-            cases.append((dtype_name, s, skv, True))
+            cases.append((dtype_name, BH, s, skv, True))
+    train_case = ("bfloat16", TRAIN_BH, TRAIN_S, TRAIN_S, True)
+    cases.append(train_case)
     gen = torch.Generator(device=device).manual_seed(0)
-    rows, main = [], None
-    for dtype_name, s, skv, causal in cases:
+    rows, main, train = [], None, None
+    for dtype_name, bh, s, skv, causal in cases:
         dtype = getattr(torch, dtype_name)
 
         def rand(n):
-            return torch.randn((BH, n, HEAD_DIM), generator=gen,
+            return torch.randn((bh, n, HEAD_DIM), generator=gen,
                                device=device).to(dtype)
 
         q, k, v = rand(s), rand(skv), rand(skv)
-        out = flash_attention_fwd(q, k, v, causal=causal)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, save_lse=True)
         torch.cuda.synchronize()
         # the plain version in fp32 on the same values: the kernel
         # computes in fp32 and rounds only its output to the input dtype
         ref = reference_attention(q.float(), k.float(), v.float(), causal)
+        ref_lse = reference_lse(q.float(), k.float(), causal)
         err = (out.float() - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
         tol = TOL[dtype_name]
-        ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol))
-        kernel_ms = cuda_time_ms(
-            lambda: flash_attention_fwd(q, k, v, causal=causal))
+        ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)
+                  and torch.allclose(lse, ref_lse, **LSE_TOL))
+        save = (dtype_name, bh, s, skv, causal) == train_case
+        kernel_ms = cuda_time_ms(lambda: flash_attention_fwd(
+            q, k, v, causal=causal, save_lse=save))
         plain_ms = cuda_time_ms(
-            lambda: reference_attention(q, k, v, causal))
-        if causal and s != skv:  # SDPA aligns is_causal top-left
-            mask = (torch.arange(skv, device=device)[None, :]
-                    <= torch.arange(s, device=device)[:, None] + (skv - s))
-            kw = {"attn_mask": mask}
-        else:
-            kw = {"is_causal": causal}
+            lambda: (reference_attention(q, k, v, causal),
+                     reference_lse(q, k, causal) if save else None))
+        kw = _sdpa_kwargs(device, s, skv, causal)
+        b = bh // BH  # [B, 12 heads, S, D] for SDPA
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], **kw))
+            q.view(b, -1, s, HEAD_DIM), k.view(b, -1, skv, HEAD_DIM),
+            v.view(b, -1, skv, HEAD_DIM), **kw))
         bound_ms, bound_by, nbytes, ops = attention_bound(
-            BH, s, skv, HEAD_DIM, causal, dtype_name, q.element_size())
-        row = dict(dtype=dtype_name, S=s, Skv=skv, causal=causal,
-                   max_abs_err=err, tol=tol, ok=ok, kernel_ms=kernel_ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                   ops=ops)
+            bh, s, skv, HEAD_DIM, causal, dtype_name, q.element_size(),
+            save_lse=save)
+        row = dict(dtype=dtype_name, BH=bh, S=s, Skv=skv, causal=causal,
+                   save_lse=save, max_abs_err=err, lse_max_abs_err=lse_err,
+                   tol=tol, ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes, ops=ops)
         rows.append(row)
-        log(f"[kernels] flash_fwd {dtype_name:8s} BH={BH} S={s:4d} "
+        log(f"[kernels] flash_fwd {dtype_name:8s} BH={bh} S={s:4d} "
             f"Skv={skv:4d} D={HEAD_DIM} causal={causal!s:5s} "
             f"max_abs_err={err:.3e} (tol {tol:g}, atol=rtol) "
-            f"{'ok' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} "
+            f"lse_err={lse_err:.2e} {'ok' if ok else 'FAIL'} "
+            f"kernel_ms={kernel_ms:.4f}{' (lse)' if save else ''} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"bound_ms={bound_ms:.5f} ({bound_by})")
-        if (dtype_name, s, skv, causal) == MAIN_CASE:
+        if (dtype_name, s, skv, causal) == MAIN_CASE and bh == BH:
             main = row
+        if save:
+            train = row
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"flash_fwd disagrees with its plain version "
+                             f"in {len(bad)} case(s): {bad}")
+    return rows, main, train
+
+
+def phase_backward(device):
+    """dq and dk/dv kernels against ``reference_flash_bwd`` (in fp32 on the
+    same values, with o and lse from the forward kernel), then, at the
+    main backward case, each kernel timed beside its plain version, its
+    bound and the SDPA backward of the pair."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_dkv, flash_attention_dq,
+        flash_attention_fwd, reference_delta, reference_flash_bwd,
+        reference_flash_dkv, reference_flash_dq, reference_lse)
+
+    main_case = ("bfloat16", TRAIN_BH, TRAIN_S, TRAIN_S, HEAD_DIM, True)
+    cases = [main_case, ("float32",) + main_case[1:]]
+    for dtype_name in ("bfloat16", "float32"):
+        cases += [(dtype_name, BH, 1024, 1024, HEAD_DIM, False),
+                  (dtype_name, BH, 64, 1024, HEAD_DIM, True),
+                  (dtype_name, BH, 992, 1024, HEAD_DIM, True),
+                  (dtype_name, BH, 67, 67, HEAD_DIM, True),
+                  (dtype_name, BH, 131, 131, HEAD_DIM, False),
+                  (dtype_name, BH, 96, 160, 128, True)]
+    gen = torch.Generator(device=device).manual_seed(1)
+    rows, main = [], None
+    for case in cases:
+        dtype_name, bh, s, skv, d, causal = case
+        dtype = getattr(torch, dtype_name)
+
+        def rand(n):
+            return torch.randn((bh, n, d), generator=gen,
+                               device=device).to(dtype)
+
+        q, k, v, do = rand(s), rand(skv), rand(skv), rand(s)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, save_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        want = reference_flash_bwd(q.float(), k.float(), v.float(),
+                                   o.float(), lse, do.float(), causal)
+        checks = [bwd_close(g, w, dtype_name) for g, w in zip(got, want)]
+        lse_ok = bool(torch.allclose(
+            lse, reference_lse(q.float(), k.float(), causal), **LSE_TOL))
+        ok = lse_ok and all(c[1] for c in checks)
+        errs = {f"d{n}": c[0] for n, c in zip("qkv", checks)}
+        row = dict(dtype=dtype_name, BH=bh, S=s, Skv=skv, D=d,
+                   causal=causal, ok=ok, lse_ok=lse_ok, **errs)
+        del want
+        if case == main_case:
+            delta = reference_delta(o, do)
+            row["dq_ms"] = cuda_time_ms(lambda: flash_attention_dq(
+                q, k, v, do, lse, delta, causal))
+            row["dkv_ms"] = cuda_time_ms(lambda: flash_attention_dkv(
+                q, k, v, do, lse, delta, causal))
+            row["dq_plain_ms"] = cuda_time_ms(lambda: reference_flash_dq(
+                q, k, v, do, lse, delta, causal), reps=5)
+            row["dkv_plain_ms"] = cuda_time_ms(lambda: reference_flash_dkv(
+                q, k, v, do, lse, delta, causal), reps=5)
+            # the yardstick: SDPA's backward for the pair (dq, dk, dv
+            # together) on a retained graph
+            b = bh // 12
+            leaves = [t.view(b, 12, -1, d).detach().requires_grad_()
+                      for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            do4 = do.view(b, 12, s, d)
+            row["pair_library_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
+                out, leaves, do4, retain_graph=True))
+            for kernel in ("dq", "dkv"):
+                bound_ms, bound_by, nbytes, ops = backward_bound(
+                    kernel, bh, s, skv, d, causal, dtype_name,
+                    q.element_size())
+                row[f"{kernel}_bound_ms"] = bound_ms
+                row[f"{kernel}_bound_by"] = bound_by
+                row[f"{kernel}_bytes"], row[f"{kernel}_ops"] = nbytes, ops
+            main = row
+            del out, leaves
+        rows.append(row)
+        timing = (f" dq_ms={row['dq_ms']:.4f} (plain {row['dq_plain_ms']:.4f}"
+                  f", bound {row['dq_bound_ms']:.5f} {row['dq_bound_by']}) "
+                  f"dkv_ms={row['dkv_ms']:.4f} (plain "
+                  f"{row['dkv_plain_ms']:.4f}, bound "
+                  f"{row['dkv_bound_ms']:.5f} {row['dkv_bound_by']}) "
+                  f"sdpa_bwd_pair_ms={row['pair_library_ms']:.4f}"
+                  if case == main_case else "")
+        log(f"[kernels] flash_bwd {dtype_name:8s} BH={bh} S={s:4d} "
+            f"Skv={skv:4d} D={d} causal={causal!s:5s} max_abs_err "
+            + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+            + f" lse {'ok' if lse_ok else 'FAIL'} "
+            f"{'ok' if ok else 'FAIL'}{timing}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"flash_bwd disagrees with its plain version "
                              f"in {len(bad)} case(s): {bad}")
     return rows, main
 
@@ -222,6 +401,72 @@ def phase_forward(device, preset="gpt2-small", batch=8, seq=1024):
         raise AssertionError(f"expected {cfg.n_layers} flash launches, got "
                              f"{launches}")
     return dict(err=err, floor=floor, err32=err32, launches=launches)
+
+
+def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
+    """Full-width gradients of ``loss_fn`` with the kernels vs
+    attention="ref". fp32 is held to 1e-3 of each leaf's largest
+    gradient; bf16 to twice the plain path's own rounding noise (its
+    distance to the fp32 model), leaf by leaf."""
+    import torch
+
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        launch_counts, reset_launch_count)
+    from ray_memory_management_tpu_torch.utils import gpu_bench
+
+    cfg = dataclasses.replace(gpt.PRESETS[preset], attention="flash")
+    gen = torch.Generator(device=device).manual_seed(2)
+    params = gpt.init_params(cfg, gen, device)
+    data = gpu_bench.make_batch(cfg, batch, seq, gen, device)
+    leaves = [t.requires_grad_() for t in gpt.param_leaves(params)]
+    names = [f"{k}.{n}" if isinstance(v, dict) else k
+             for k, v in params.items()
+             for n in (v if isinstance(v, dict) else [None])]
+
+    def grads(c):
+        loss = gpt.loss_fn(params, data, c)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    reset_launch_count()
+    loss_k, gk = grads(cfg)
+    launches = launch_counts()
+    loss_r, gr = grads(dataclasses.replace(cfg, attention="ref"))
+    loss_r32, gr32 = grads(dataclasses.replace(f32, attention="ref"))
+    loss_k32, gk32 = grads(f32)
+    torch.cuda.synchronize()
+    tol32, rows = 1e-3, []
+    for name, a, b, c, d in zip(names, gk, gr, gr32, gk32):
+        scale = c.abs().max().item()
+        rows.append(dict(leaf=name, err=(a - b).abs().max().item(),
+                         floor=(b - c).abs().max().item(),
+                         err32=(d - c).abs().max().item(), scale32=scale,
+                         finite=bool(torch.isfinite(a).all()
+                                     and torch.isfinite(d).all())))
+    bf16_ok = all(r["err"] <= 2 * r["floor"] for r in rows)
+    fp32_ok = all(r["err32"] <= tol32 * r["scale32"] for r in rows)
+    finite = all(r["finite"] for r in rows)
+    worst = max(rows, key=lambda r: r["err"] / r["floor"])
+    worst32 = max(rows, key=lambda r: r["err32"] / r["scale32"])
+    log(f"[grad] {preset} B={batch} S={seq}: loss bf16 kernel {loss_k:.5f} "
+        f"ref {loss_r:.5f}, fp32 kernel {loss_k32:.6f} ref {loss_r32:.6f}; "
+        f"bf16 worst leaf {worst['leaf']} max_abs_err={worst['err']:.3e} "
+        f"(limit 2 x bf16 noise floor {worst['floor']:.3e}); fp32 worst "
+        f"leaf {worst32['leaf']} max_abs_err={worst32['err32']:.3e} "
+        f"(tol {tol32:g} x max|grad| {worst32['scale32']:.3e}); launches "
+        f"{launches} (expect {cfg.n_layers} each)")
+    if not finite:
+        raise AssertionError("grad: non-finite gradients")
+    if not (bf16_ok and fp32_ok):
+        raise AssertionError(f"grad: gradients with the kernels disagree "
+                             f"with attention='ref': {rows}")
+    if any(n != cfg.n_layers for n in launches.values()):
+        raise AssertionError(f"grad: launches {launches}, expected "
+                             f"{cfg.n_layers} of each kernel")
+    return dict(loss_bf16=loss_k, loss_ref_bf16=loss_r, loss_fp32=loss_k32,
+                loss_ref_fp32=loss_r32, worst_bf16=worst, worst_fp32=worst32,
+                launches=launches)
 
 
 def _serve_requests(vocab, seed):
@@ -371,6 +616,44 @@ def phase_engine_parity(device, preset="gpt2-small", new_tokens=8):
         raise AssertionError(f"engine tokens {got} != generate {want}")
 
 
+def phase_train(device, steps=8):
+    """The training main path: ``train_step_mfu`` (gpt2-small, B = 8,
+    S = 1024, AdamW) with the launch counts zeroed just before its steps
+    and read just after."""
+    import math
+
+    import torch
+
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        launch_counts, reset_launch_count)
+    from ray_memory_management_tpu_torch.utils.gpu_bench import (
+        train_step_mfu)
+
+    n_layers = gpt.PRESETS["gpt2-small"].n_layers
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_count()
+    r = train_step_mfu("gpt2-small", batch_size=TRAIN_B, seq_len=TRAIN_S,
+                       steps=steps, device=device)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    losses = r["losses"]
+    log(f"[train] gpt2-small B={TRAIN_B} S={TRAIN_S} on {r['device']}: "
+        f"{steps} AdamW steps, losses {[round(x, 4) for x in losses]}; "
+        f"step_ms={r['step_ms']:.2f} tokens_per_s={r['tokens_per_s']:.1f} "
+        f"mfu={r['mfu']:.4f} (PaLM accounting, 989 TFLOP/s peak) "
+        f"n_params={r['n_params']} peak_mem={peak_gb:.2f} GB; launches "
+        f"{launches} (need {n_layers * steps} each)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("train: non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    if any(n != n_layers * steps for n in launches.values()):
+        raise AssertionError(f"train: launches {launches}, expected "
+                             f"{n_layers * steps} of each kernel")
+    return dict(r, launches=launches, peak_mem_gb=peak_gb)
+
+
 def main() -> int:
     import torch
 
@@ -395,10 +678,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_s = phase_build()
-    rows, main_row = phase_kernels(device)
+    rows, main_row, train_fwd = phase_kernels(device)
+    bwd_rows, bwd = phase_backward(device)
     fwd = phase_forward(device)
+    grad = phase_grad(device)
     serve = phase_serve(device)
     phase_engine_parity(device)
+    train = phase_train(device)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -406,13 +692,16 @@ def main() -> int:
         "main_shape": {"BH": BH, "S": MAIN_CASE[1], "Skv": MAIN_CASE[2],
                        "D": HEAD_DIM, "dtype": MAIN_CASE[0],
                        "causal": MAIN_CASE[3]},
-        "forward": fwd, "serve": serve}}))
+        "forward_train_shape": train_fwd, "backward_main": bwd,
+        "forward": fwd, "grad": grad, "serve": serve, "train": train}}))
+    src = "ray_memory_management_tpu_torch/csrc/"
+    ref = "ray_memory_management_tpu/ops/flash_attention.py:"
+    pair = ("SDPA backward, dq, dk and dv together, on the same inputs")
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "ray_memory_management_tpu_torch/csrc/"
-                  "flash_attention_fwd.cu",
-        "replaces": "ray_memory_management_tpu/ops/flash_attention.py:74",
+        "source": src + "flash_attention_fwd.cu",
+        "replaces": ref + "74",
         "launches": serve["launches"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"],
@@ -420,6 +709,40 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        # the training path: its launches, and the lse variant at BH = 96
+        "launches_train": train["launches"]["flash_attention_fwd"],
+        "max_abs_err_train": train_fwd["max_abs_err"],
+        "ms_train": train_fwd["kernel_ms"],
+        "plain_ms_train": train_fwd["plain_ms"],
+        "bound_ms_train": train_fwd["bound_ms"],
+        "bound_by_train": train_fwd["bound_by"],
+        "library_ms_train": train_fwd["library_ms"],
+    }, {
+        "name": "flash_attention_dq",
+        "route": "cuda",
+        "source": src + "flash_attention_bwd.cu",
+        "replaces": ref + "168",
+        "launches": train["launches"]["flash_attention_dq"],
+        "max_abs_err": bwd["dq"],
+        "ms": bwd["dq_ms"],
+        "plain_ms": bwd["dq_plain_ms"],
+        "bound_ms": bwd["dq_bound_ms"],
+        "bound_by": bwd["dq_bound_by"],
+        "library_ms": bwd["pair_library_ms"],
+        "library_covers": pair,
+    }, {
+        "name": "flash_attention_dkv",
+        "route": "cuda",
+        "source": src + "flash_attention_bwd.cu",
+        "replaces": ref + "208",
+        "launches": train["launches"]["flash_attention_dkv"],
+        "max_abs_err": max(bwd["dk"], bwd["dv"]),
+        "ms": bwd["dkv_ms"],
+        "plain_ms": bwd["dkv_plain_ms"],
+        "bound_ms": bwd["dkv_bound_ms"],
+        "bound_by": bwd["dkv_bound_by"],
+        "library_ms": bwd["pair_library_ms"],
+        "library_covers": pair,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,9 +9,10 @@ converts leaf for leaf (:mod:`.convert`):
   - compute in ``cfg.dtype`` (bf16 by default), parameters and
     reductions in fp32, and bf16 rounds where the JAX code rounds;
   - attention: "flash" / "auto" go through ``ops.flash_attention`` (the
-    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor),
-    "ref" through the plain version. "ring"/"ulysses" and the MoE FFN
-    (``n_experts > 0``) belong to later slices and raise.
+    CUDA kernels, forward and backward, on a CUDA tensor; the plain
+    versions on a CPU tensor), "ref" through the plain version.
+    "ring"/"ulysses" and the MoE FFN (``n_experts > 0``) belong to later
+    slices and raise.
 
 The KV-cached path (``forward_with_cache`` / ``forward_with_cache_rows``)
 updates the cache tensors IN PLACE and returns the same dict: the JAX
@@ -26,6 +27,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention, reference_attention
 from ..utils.device import resolve_device
@@ -233,11 +235,22 @@ def apply_block(x, layer, cfg: TransformerConfig, attn_fn=None,
 
 def forward_with_aux(params: Params, tokens, cfg: TransformerConfig):
     """tokens [B, S] -> (logits [B, S, V] fp32, aux scalar: 0.0, the MoE
-    load-balancing loss of a dense config)."""
+    load-balancing loss of a dense config). With ``cfg.remat`` each block
+    is checkpointed (the JAX ``jax.checkpoint`` per block): its
+    activations are recomputed in the backward pass instead of kept."""
     x = params["tok_embed"][tokens].to(cfg.dtype)
+
+    def block(x, layer):
+        x, _, moe_aux = apply_block_with_aux(x, layer, cfg)
+        return x, moe_aux
+
     aux = []
     for i in range(cfg.n_layers):
-        x, _, moe_aux = apply_block_with_aux(x, _layer(params, i), cfg)
+        if cfg.remat:
+            x, moe_aux = checkpoint(block, x, _layer(params, i),
+                                    use_reentrant=False)
+        else:
+            x, moe_aux = block(x, _layer(params, i))
         aux.append(moe_aux)
     x = _rmsnorm(x, params["final_ln"])
     return _logits(x, params["lm_head"], cfg), torch.stack(aux).mean()
@@ -246,6 +259,32 @@ def forward_with_aux(params: Params, tokens, cfg: TransformerConfig):
 def forward(params: Params, tokens, cfg: TransformerConfig):
     """tokens [B, S] -> logits [B, S, V] (fp32)."""
     return forward_with_aux(params, tokens, cfg)[0]
+
+
+def loss_fn(params: Params, batch, cfg: TransformerConfig):
+    """batch: {"tokens": [B, S], "targets": [B, S]} -> mean cross-entropy.
+
+    The fused form of the JAX ``loss_fn``: mean(logsumexp(logits) -
+    logits[target]), never log_softmax's [B, S, V] residual. MoE configs
+    (whose weighted aux term the JAX loss adds) raise in the forward, as
+    the rest of MoE does."""
+    logits, _ = forward_with_aux(params, batch["tokens"], cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    take = logits.gather(-1, batch["targets"][..., None])[..., 0]
+    return (lse - take).mean()
+
+
+def param_leaves(params: Params):
+    """The parameter tensors of the nested dict, in its key order."""
+    for v in params.values():
+        if isinstance(v, dict):
+            yield from param_leaves(v)
+        else:
+            yield v
+
+
+def count_params(params: Params) -> int:
+    return sum(t.numel() for t in param_leaves(params))
 
 
 # ------------------------------------------------------------ cached decode

@@ -1,117 +1,202 @@
-"""Flash attention forward: a hand-written CUDA kernel for Hopper, with the
-plain PyTorch version beside it.
+"""Flash attention: hand-written CUDA kernels for Hopper, forward and
+backward, with the plain PyTorch version of each beside it.
 
-Counterpart of ``ops/flash_attention.py`` in the JAX package, whose
-Pallas ``_fwd_kernel`` this replaces. The kernel lives in
-``csrc/flash_attention_fwd.cu`` and is built by :mod:`._build` at first
-use. :func:`flash_attention` picks the route from where the tensors lie:
-a CPU tensor takes :func:`reference_attention`, a CUDA tensor launches
-the kernel (or raises; there is no fallback). Forward only: the two
-backward kernels (dq, dk/dv) belong to the training slice.
+Counterpart of ``ops/flash_attention.py`` in the JAX package. Its Pallas
+``_fwd_kernel`` becomes ``csrc/flash_attention_fwd.cu``; its
+``_dq_kernel`` and ``_dkv_kernel`` become the two kernels of
+``csrc/flash_attention_bwd.cu``; both libraries are built by :mod:`._build`
+at first use. Its ``_flash_attention`` custom_vjp becomes
+:class:`_FlashAttention`. :func:`flash_attention` picks the route from
+where the tensors lie: a CUDA tensor launches the kernels (or raises;
+there is no fallback), a CPU tensor takes the plain versions through the
+same autograd glue.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from . import _build
 
 _NEG_INF = -1e30
-KERNEL = "flash_attention_fwd"
+FWD = "flash_attention_fwd"
+DQ = "flash_attention_dq"
+DKV = "flash_attention_dkv"
 MAX_HEAD_DIM = 128
 
-_launches = 0  # kernel launches since the last reset_launch_count()
+# kernel launches since the last reset_launch_count(), by kernel
+_launches: Dict[str, int] = {FWD: 0, DQ: 0, DKV: 0}
 
 
 def launch_count() -> int:
-    """Kernel launches made by :func:`flash_attention_fwd` since the last
-    :func:`reset_launch_count` (calls that took the plain version are not
-    counted)."""
-    return _launches
+    """Launches of the forward kernel since the last
+    :func:`reset_launch_count` (:func:`launch_counts` has every kernel's);
+    calls that took the plain version are not counted."""
+    return _launches[FWD]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of every kernel since the last :func:`reset_launch_count`."""
+    return dict(_launches)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for name in _launches:
+        _launches[name] = 0
 
 
-def reference_attention(q, k, v, causal: bool = True,
-                        scale: Optional[float] = None):
-    """Plain attention (the correctness oracle). The causal mask is
-    bottom-right aligned: query row i sees key cols <= i + (Skv - S)."""
-    S, D = q.shape[-2], q.shape[-1]
-    Skv = k.shape[-2]
-    scale = scale if scale is not None else D ** -0.5
+def _scores(q, k, causal: bool, scale: float):
+    """fp32 scores ``q k^T * scale`` with the bottom-right causal mask: query
+    row i sees key cols <= i + (Skv - S)."""
+    S, Skv = q.shape[-2], k.shape[-2]
     s = torch.einsum("...qd,...kd->...qk", q, k).float() * scale
     if causal:
         qi = torch.arange(S, device=q.device)[:, None] + (Skv - S)
         ki = torch.arange(Skv, device=q.device)[None, :]
         s = s.masked_fill(ki > qi, _NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def reference_attention(q, k, v, causal: bool = True,
+                        scale: Optional[float] = None):
+    """Plain attention (the correctness oracle)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    p = torch.softmax(_scores(q, k, causal, scale), dim=-1)
     return torch.einsum("...qk,...kd->...qd", p.to(v.dtype), v)
 
 
-_lib: Optional[ctypes.CDLL] = None
+def reference_lse(q, k, causal: bool = True, scale: Optional[float] = None):
+    """The forward kernel's saved statistic, plainly: ``logsumexp`` of the
+    scaled, masked scores, as [..., S, 1] fp32."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return torch.logsumexp(_scores(q, k, causal, scale), dim=-1,
+                           keepdim=True)
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    """The kernel's library, built and bound on first use."""
-    global _lib
-    if _lib is None:
-        lib = _build.load(KERNEL)
-        lib.rmt_flash_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.rmt_flash_fwd.restype = ctypes.c_int
+def _recompute(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """(p, ds) in fp32, recomputed from lse as the backward kernels do: the
+    scale goes on after QK^T (the forward puts it on q)."""
+    p = torch.exp(_scores(q.float(), k.float(), causal, scale) - lse)
+    dp = torch.einsum("...qd,...kd->...qk", do.float(), v.float())
+    return p, p * (dp - delta) * scale
+
+
+def reference_delta(o, do):
+    """delta = rowsum(dO * O) in fp32, [..., S, 1] (JAX ``_flash_bwd``)."""
+    return (do.float() * o.float()).sum(dim=-1, keepdim=True)
+
+
+def reference_flash_dq(q, k, v, do, lse, delta, causal: bool = True,
+                       scale: Optional[float] = None):
+    """The dq kernel's function, plainly: ``dq = ds k``, in q's dtype."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _, ds = _recompute(q, k, v, do, lse, delta, causal, scale)
+    return torch.einsum("...qk,...kd->...qd", ds, k.float()).to(q.dtype)
+
+
+def reference_flash_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                        scale: Optional[float] = None):
+    """The dk/dv kernel's function, plainly: ``dk = ds^T q``,
+    ``dv = p^T dO``, in k's and v's dtypes."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    p, ds = _recompute(q, k, v, do, lse, delta, causal, scale)
+    dk = torch.einsum("...qk,...qd->...kd", ds, q.float()).to(k.dtype)
+    dv = torch.einsum("...qk,...qd->...kd", p, do.float()).to(v.dtype)
+    return dk, dv
+
+
+def reference_flash_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        scale: Optional[float] = None):
+    """Plain PyTorch version of :func:`flash_attention_bwd`: the same
+    recompute formulas, in fp32, each output rounded once to its input's
+    dtype. Returns (dq, dk, dv)."""
+    delta = reference_delta(o, do)
+    dq = reference_flash_dq(q, k, v, do, lse, delta, causal, scale)
+    return (dq, *reference_flash_dkv(q, k, v, do, lse, delta, causal, scale))
+
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_BWD_SYMBOL = {DQ: "rmt_flash_bwd_dq", DKV: "rmt_flash_bwd_dkv"}
+_SIGNATURES = {
+    FWD: {"rmt_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P]},
+    "flash_attention_bwd": {
+        "rmt_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P],
+        "rmt_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P],
+    },
+}
+
+
+def _kernel_lib(source: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>.cu``, built and bound on
+    first use."""
+    lib = _libs.get(source)
+    if lib is None:
+        lib = _build.load(source)
+        for fn, argtypes in _SIGNATURES[source].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         lib.rmt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rmt_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[source] = lib
+    return lib
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _check(fn: str, named, q, k):
+    """The checks every kernel wrapper makes; returns (BH, S, Skv, D)."""
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{fn}: {name} is on {t.device}, not a CUDA "
+                             "device")
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"{fn}: {name} has dtype {t.dtype}; the kernel "
+                            "takes float32 or bfloat16")
+        if t.dim() != 3:
+            raise ValueError(f"{fn}: {name} must be [BH, S, D], got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+    if len({t.dtype for _, t in named}) != 1:
+        raise TypeError(f"{fn}: {', '.join(n for n, _ in named)} dtypes "
+                        "differ")
+    if len({t.device for _, t in named}) != 1:
+        raise ValueError(f"{fn}: inputs lie on different devices")
+    BH, S, D = q.shape
+    Skv = k.shape[1]
+    for name, t in named:
+        rows = S if name in ("q", "o", "do") else Skv
+        if t.shape != (BH, rows, D):
+            raise ValueError(f"{fn}: shapes "
+                             + ", ".join(f"{n} {tuple(x.shape)}"
+                                         for n, x in named) + " disagree")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{fn}: head dim {D} > {MAX_HEAD_DIM}")
+    return BH, S, Skv, D
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, fn: str) -> None:
+    if err != 0:
+        msg = lib.rmt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {err})")
+
+
 def flash_attention_fwd(q, k, v, causal: bool = True,
                         scale: Optional[float] = None,
                         save_lse: bool = False):
-    """Launch the CUDA kernel on [BH, S, D] / [BH, Skv, D] CUDA tensors.
+    """Launch the forward kernel on [BH, S, D] / [BH, Skv, D] CUDA tensors.
 
     Returns ``o`` ([BH, S, D], input dtype), or ``(o, lse)`` with lse
     [BH, S, 1] fp32 when ``save_lse``. Raises on anything the kernel does
     not take: a non-CUDA tensor, a dtype other than fp32/bf16, mixed
     dtypes or devices, a non-contiguous tensor, or D > 128."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"flash_attention_fwd: {name} is on {t.device},"
-                             " not a CUDA device")
-        if t.dtype not in _DTYPE_CODE:
-            raise TypeError(f"flash_attention_fwd: {name} has dtype "
-                            f"{t.dtype}; the kernel takes float32 or "
-                            "bfloat16")
-        if t.dim() != 3:
-            raise ValueError(f"flash_attention_fwd: {name} must be "
-                             f"[BH, S, D], got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention_fwd: {name} is not "
-                             "contiguous")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("flash_attention_fwd: q, k, v dtypes differ")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention_fwd: q, k, v devices differ")
-    BH, S, D = q.shape
-    Skv = k.shape[1]
-    if k.shape != (BH, Skv, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_fwd: head dim {D} > "
-                         f"{MAX_HEAD_DIM}")
+    BH, S, Skv, D = _check("flash_attention_fwd",
+                           (("q", q), ("k", k), ("v", v)), q, k)
     scale = scale if scale is not None else D ** -0.5
     o = torch.empty_like(q)
     lse = (torch.empty((BH, S, 1), dtype=torch.float32, device=q.device)
@@ -120,50 +205,140 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         return (o, lse) if save_lse else o
     if Skv == 0:
         raise ValueError("flash_attention_fwd: no keys (Skv = 0)")
-    lib = _kernel_lib()
+    lib = _kernel_lib(FWD)
     with torch.cuda.device(q.device):  # the launch goes to the current device
         err = lib.rmt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             BH, S, Skv, D, float(scale), int(bool(causal)),
             _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = lib.rmt_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_attention_fwd launch failed: {msg} "
-                           f"(cudaError {err})")
-    global _launches
-    _launches += 1
+    _raise_on(err, lib, "flash_attention_fwd")
+    _launches[FWD] += 1
     return (o, lse) if save_lse else o
+
+
+def _check_stats(fn: str, BH: int, S: int, device, **stats) -> None:
+    for name, t in stats.items():
+        if (t.device != device or t.dtype != torch.float32
+                or t.shape != (BH, S, 1) or not t.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be a contiguous fp32 "
+                             f"[BH, S, 1] = {(BH, S, 1)} tensor on {device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _launch_bwd(kernel: str, q, k, v, do, lse, delta, causal: bool,
+                scale: Optional[float]):
+    """Check the inputs of one backward kernel, launch it, and return its
+    outputs: ``(dq,)`` for :data:`DQ`, ``(dk, dv)`` for :data:`DKV`."""
+    BH, S, Skv, D = _check(kernel, (("q", q), ("k", k), ("v", v),
+                                    ("do", do)), q, k)
+    _check_stats(kernel, BH, S, q.device, lse=lse, delta=delta)
+    scale = scale if scale is not None else D ** -0.5
+    outs = ((torch.empty_like(q),) if kernel == DQ
+            else (torch.empty_like(k), torch.empty_like(v)))
+    if BH == 0 or S == 0 or Skv == 0:
+        return tuple(t.zero_() for t in outs)
+    lib = _kernel_lib("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        err = getattr(lib, _BWD_SYMBOL[kernel])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            BH, S, Skv, D, float(scale), int(bool(causal)),
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, lib, kernel)
+    _launches[kernel] += 1
+    return outs
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = True,
+                       scale: Optional[float] = None):
+    """Launch the dq kernel: ``dq`` [BH, S, D] in the input dtype, from
+    q, dO [BH, S, D], k, v [BH, Skv, D] and lse, delta [BH, S, 1] fp32."""
+    return _launch_bwd(DQ, q, k, v, do, lse, delta, causal, scale)[0]
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                        scale: Optional[float] = None):
+    """Launch the dk/dv kernel: ``(dk, dv)`` [BH, Skv, D] in the input
+    dtype, from the same inputs as :func:`flash_attention_dq`."""
+    return _launch_bwd(DKV, q, k, v, do, lse, delta, causal, scale)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        scale: Optional[float] = None):
+    """The backward pass on CUDA tensors: (dq, dk, dv) in the input dtype.
+
+    q, o, dO are [BH, S, D], k, v [BH, Skv, D], lse [BH, S, 1] fp32 from
+    ``flash_attention_fwd(..., save_lse=True)``. delta = rowsum(dO * O) is
+    one elementwise pass in PyTorch (outside any kernel in JAX too); then
+    the dq kernel and the dk/dv kernel launch. Raises on what the kernels
+    do not take, as :func:`flash_attention_fwd` does: the two kernel
+    wrappers check every input but ``o``, which only delta reads."""
+    _check("flash_attention_bwd", (("o", o),), q, k)
+    delta = reference_delta(o, do)
+    dq = flash_attention_dq(q, k, v, do, lse, delta, causal, scale)
+    return (dq, *flash_attention_dkv(q, k, v, do, lse, delta, causal, scale))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of the JAX ``_flash_attention`` custom_vjp over
+    [BH, S, D] inputs: the kernels on CUDA tensors, the plain versions (the
+    reference forward plus lse, and :func:`reference_flash_bwd`) on CPU
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, save: bool):
+        if q.device.type == "cuda":
+            if not save:  # inference: the kernel writes no lse
+                return flash_attention_fwd(q, k, v, causal, scale)
+            out, lse = flash_attention_fwd(q, k, v, causal, scale,
+                                           save_lse=True)
+        else:
+            out = reference_attention(q, k, v, causal, scale)
+            lse = reference_lse(q, k, causal, scale) if save else None
+        if save:
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()  # the model hands back a transposed view
+        bwd = (flash_attention_bwd if q.device.type == "cuda"
+               else reference_flash_bwd)
+        dq, dk, dv = bwd(q, k, v, out, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True,
                     scale: Optional[float] = None,
                     use_kernel: Optional[str] = None):
-    """Multi-head attention over [B, H, S, D] (or [BH, S, D]) inputs.
+    """Multi-head attention over [B, H, S, D] (or [BH, S, D]) inputs;
+    differentiable.
 
     ``use_kernel``: None or "on" picks the route from the device — the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors;
-    "off" always takes the plain version (the JAX package's
-    ``use_pallas="off"``). Forward only: inputs that require grad raise
-    NotImplementedError on the kernel route rather than falling back to
-    autograd through the plain version."""
+    CUDA kernels for CUDA tensors, the plain versions for CPU tensors, both
+    through :class:`_FlashAttention` (the forward saves lse only when an
+    input requires grad); "off" is autograd through
+    :func:`reference_attention` (the JAX package's ``use_pallas="off"``)."""
     if use_kernel not in (None, "on", "off"):
         raise ValueError(f"use_kernel must be None, 'on' or 'off', got "
                          f"{use_kernel!r}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if use_kernel == "off" or q.device.type == "cpu":
+    if use_kernel == "off":
         return reference_attention(q, k, v, causal, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError("backward kernels: next slice")
+    save = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     if q.dim() == 4:
         B, H, S, D = q.shape
-        out = flash_attention_fwd(
+        out = _FlashAttention.apply(
             q.reshape(B * H, S, D).contiguous(),
             k.reshape(B * H, k.shape[-2], D).contiguous(),
             v.reshape(B * H, v.shape[-2], D).contiguous(),
-            causal, scale)
+            causal, scale, save)
         return out.reshape(q.shape)
-    return flash_attention_fwd(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal, scale)
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, scale, save)

@@ -1,11 +1,11 @@
-"""Card-only cases of the PyTorch port: the CUDA kernel and the paths that
-launch it. Every case skips without a CUDA card (decided in the
+"""Card-only cases of the PyTorch port: the CUDA kernels and the paths that
+launch them. Every case skips without a CUDA card (decided in the
 fixture). The file imports no JAX, so it runs on the card as it is:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: the kernel computes in fp32 and rounds only its output, so
-it is held to the plain version evaluated in fp32 on the same values,
+Tolerances: the kernels compute in fp32 and round only their outputs, so
+they are held to the plain versions evaluated in fp32 on the same values,
 at 1e-4 for fp32 inputs (sums of up to ~1k terms taken in another order)
 and 1e-2 (atol and rtol) for bf16 outputs (one bf16 rounding, 2^-8
 relative).
@@ -19,13 +19,20 @@ import torch
 
 from ray_memory_management_tpu_torch.models import gpt
 from ray_memory_management_tpu_torch.ops.flash_attention import (
+    DKV,
+    DQ,
+    FWD,
     flash_attention,
+    flash_attention_bwd,
     flash_attention_fwd,
     launch_count,
+    launch_counts,
     reference_attention,
+    reference_flash_bwd,
     reset_launch_count,
 )
 from ray_memory_management_tpu_torch.serve.llm import LLMServer
+from ray_memory_management_tpu_torch.utils import gpu_bench
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
@@ -94,8 +101,70 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     big = torch.zeros(2, 8, 160, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_fwd(big, big, big)
-    with pytest.raises(NotImplementedError, match="backward kernels"):
-        flash_attention(q.requires_grad_(), k, v)
+    do = torch.ones_like(q)
+    lse = torch.zeros(2, 32, 1, device=cuda)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        flash_attention_bwd(q, k, v, q.cpu(), lse, do)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, q, lse[:, :16], do)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q, k, v, q, lse, do.bfloat16())
+    # an input that requires grad now goes through the backward kernels
+    assert flash_attention(q.requires_grad_(), k, v).grad_fn is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s,skv,d,causal", [
+    (64, 64, 64, True), (200, 200, 64, True), (200, 200, 64, False),
+    (64, 200, 64, True), (67, 67, 16, True), (130, 131, 32, False),
+    (96, 160, 128, True), (1, 77, 64, True)])
+def test_backward_kernels_match_plain(cuda, dtype, s, skv, d, causal):
+    q, k, v = _qkv(3, s, skv, d, dtype, cuda, seed=2)
+    do = _qkv(3, s, s, d, dtype, cuda, seed=3)[0]
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, save_lse=True)
+    reset_launch_count()
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts() == {FWD: 0, DQ: 1, DKV: 1}
+    want = reference_flash_bwd(q.float(), k.float(), v.float(), o.float(),
+                               lse, do.float(), causal)
+    tol = TOL[dtype]
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w, atol=tol, rtol=tol,
+                                   msg=lambda m: f"d{name}: {m}")
+
+
+def test_autograd_on_the_card_matches_the_plain_route(cuda):
+    q, k, v = (t.requires_grad_() for t in
+               _qkv(4, 90, 90, 32, torch.float32, cuda, seed=4))
+    do = torch.randn_like(q)
+    reset_launch_count()
+    out = flash_attention(q.view(2, 2, 90, 32), k.view(2, 2, 90, 32),
+                          v.view(2, 2, 90, 32)).reshape(4, 90, 32)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert launch_counts() == {FWD: 1, DQ: 1, DKV: 1}
+    want = torch.autograd.grad(
+        flash_attention(q, k, v, use_kernel="off"), (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_one_train_step_on_the_card(cuda):
+    cfg = dataclasses.replace(gpt.PRESETS["test"], attention="flash")
+    gen = torch.Generator(cuda).manual_seed(0)
+    params = gpt.init_params(cfg, gen, cuda)
+    opt = gpu_bench.make_optimizer(params)
+    batch = gpu_bench.make_batch(cfg, 2, 100, gen, cuda)
+    before = [t.detach().clone() for t in gpt.param_leaves(params)]
+    reset_launch_count()
+    loss = gpu_bench.train_step(params, opt, batch, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert launch_counts() == dict.fromkeys((FWD, DQ, DKV), cfg.n_layers)
+    assert all(not torch.equal(a, b) for a, b in
+               zip(before, gpt.param_leaves(params)))
 
 
 def test_model_forward_kernel_matches_ref(cuda):
