@@ -13,14 +13,22 @@ Phases, each of which must pass (any failure exits non-zero):
                 version (``reference_attention``, and ``logsumexp`` of the
                 plain scores for its lse output) at the serving path's
                 shapes (BH = 12, D = 64, S in {64, 992, 1024}, causal and
-                not, S != Skv, fp32 and bf16) and at the training shape
-                (BH = 96, S = 1024); then the backward kernels (dq, dk/dv)
-                against ``reference_flash_bwd`` at the training shape in
-                bf16 and fp32, non-causal, S != Skv and odd lengths. Each
-                kernel's time is printed beside its plain version's, a
-                PyTorch yardstick the port never calls (SDPA forward; the
-                SDPA backward for the dq + dk/dv pair) and the card's
-                bound.
+                not, S != Skv, fp32 and bf16; bf16 D = 128 at S = 992 and
+                a ragged S = 1000) and at the training shape (BH = 96,
+                S = 1024), each case checked for the design it took
+                (bf16 with D = 64 or 128: wgmma; fp32: SIMT); then the
+                backward kernels (dq, dk/dv) against
+                ``reference_flash_bwd`` at the training shape in bf16 and
+                fp32, non-causal, S != Skv and odd lengths. Each kernel's
+                device time (``device_ms``: the kernels of a
+                ``torch.profiler`` trace) is printed beside its plain
+                version's, a PyTorch yardstick the port never calls (SDPA
+                forward; the SDPA backward for the dq + dk/dv pair, only
+                its ``autograd.grad`` traced) and the card's bound; the
+                CUDA-event figures, which take in host time, stand beside
+                them under ``*_event_ms``. At the serving main case and the
+                training shape the forward's previous (SIMT) design is
+                timed in turns with the wgmma one (prev, new, new, prev).
   3. forward  — ``gpt.forward`` of gpt2-small at B = 8, S = 1024 with the
                 kernel against ``attention="ref"``.
   4. grad     — gradients of ``gpt.loss_fn`` for gpt2-small at B = 8,
@@ -28,13 +36,14 @@ Phases, each of which must pass (any failure exits non-zero):
   5. serve    — a main path: ``LLMServer`` (gpt2-small, paged
                 continuous batching) answers a burst of concurrent
                 requests; kernel launch counts are zeroed just before and
-                read just after. Two more bursts are timed (median
-                reported). Then a fp32 engine's greedy tokens are held
-                against ``gpt.generate``.
+                read just after, and every forward launch must be wgmma.
+                Two more bursts are timed (median reported). Then a fp32
+                engine's greedy tokens are held against ``gpt.generate``.
   6. train    — the other main path: ``train_step_mfu`` takes 8 AdamW
                 steps of gpt2-small at B = 8, S = 1024 with the launch
                 counts zeroed just before and read just after; every
-                kernel must launch once per layer per step.
+                kernel must launch once per layer per step, the forward
+                through the wgmma design.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -87,7 +96,10 @@ def card_line() -> str:
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``reps``."""
+    """Mean time of one call from CUDA events around ``reps`` calls. It
+    takes in the host's gaps between launches, so it reads host time where
+    a call is short or is several launches behind Python; it is kept only
+    under ``*_event_ms`` keys, beside :func:`device_ms`."""
     import torch
 
     for _ in range(warmup):
@@ -100,6 +112,44 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3, attempts: int = 5):
+    """Mean device time of one call of ``fn``: the summed device time of
+    the CUDA kernels (and copies and sets) in a ``torch.profiler`` trace of
+    ``reps`` calls, over ``reps``. Returns (ms, names of the device rows).
+    Each call launches the same kernels, so a complete trace has every
+    row a multiple of ``reps`` times. On the H100 the profiler now and
+    then returns a trace with no device rows, or with some calls' rows
+    missing (18 of 20); such a trace is taken again, up to ``attempts``
+    times, and then this raises: there is no fallback to events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_memory_management_tpu_torch.utils.profile_serve import (
+        device_us, kernel_rows)
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof)
+        if rows and all(e.count % reps == 0 for e in rows):
+            us = sum(device_us(e) for e in rows)
+            return us / 1e3 / reps, sorted({e.key for e in rows})
+        log(f"[profiler] trace {attempt} of {attempts} incomplete for {reps} "
+            f"calls: {[(e.key[:40], e.count) for e in rows]}")
+    raise AssertionError(f"device_ms: no complete profiler trace in "
+                         f"{attempts} attempts")
+
+
+def short_names(names, width=60):
+    return ", ".join(n if len(n) <= width else n[:width] + "..."
+                     for n in names)
 
 
 def admitted_pairs(s, skv, causal):
@@ -179,80 +229,136 @@ def _sdpa_kwargs(device, s, skv, causal):
 
 
 def phase_kernels(device):
-    """The forward kernel, o and lse, in every case; timed beside its plain
-    version, SDPA and its bound. Returns (rows, serving main row, training
-    shape row)."""
+    """The forward kernel, o and lse, in every case, each case launched
+    through the main path's dispatch and checked for the design it took;
+    timed (profiler device time) beside its plain version, SDPA and its
+    bound; at the serving main case and the training shape also the SIMT
+    design in turns with the wgmma one (prev, new, new, prev). Returns
+    (rows, serving main row, training shape row)."""
     import torch
     import torch.nn.functional as F
 
     from ray_memory_management_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, reference_attention, reference_lse)
+        flash_attention_fwd, flash_attention_fwd_simt, fwd_design,
+        fwd_design_counts, reference_attention, reference_lse,
+        reset_launch_count)
 
     cases = []
     for dtype_name in ("float32", "bfloat16"):
         for s in (64, 992, 1024):
             for causal in (True, False):
-                cases.append((dtype_name, BH, s, s, causal))
+                cases.append((dtype_name, BH, s, s, HEAD_DIM, causal))
         for s, skv in ((64, 1024), (992, 1024)):
-            cases.append((dtype_name, BH, s, skv, True))
-    train_case = ("bfloat16", TRAIN_BH, TRAIN_S, TRAIN_S, True)
+            cases.append((dtype_name, BH, s, skv, HEAD_DIM, True))
+    cases += [("bfloat16", BH, 992, 992, 128, True),    # D = 128
+              ("bfloat16", BH, 1000, 1000, HEAD_DIM, True)]  # ragged S
+    train_case = ("bfloat16", TRAIN_BH, TRAIN_S, TRAIN_S, HEAD_DIM, True)
     cases.append(train_case)
     gen = torch.Generator(device=device).manual_seed(0)
     rows, main, train = [], None, None
-    for dtype_name, bh, s, skv, causal in cases:
+    for case in cases:
+        dtype_name, bh, s, skv, d, causal = case
         dtype = getattr(torch, dtype_name)
 
         def rand(n):
-            return torch.randn((bh, n, HEAD_DIM), generator=gen,
+            return torch.randn((bh, n, d), generator=gen,
                                device=device).to(dtype)
 
         q, k, v = rand(s), rand(skv), rand(skv)
+        design = fwd_design(dtype, d)
+        reset_launch_count()
         out, lse = flash_attention_fwd(q, k, v, causal=causal, save_lse=True)
         torch.cuda.synchronize()
+        designs = fwd_design_counts()
         # the plain version in fp32 on the same values: the kernel
-        # computes in fp32 and rounds only its output to the input dtype
+        # computes in fp32 and rounds its output to the input dtype (the
+        # wgmma design also rounds p to bf16 before P V)
         ref = reference_attention(q.float(), k.float(), v.float(), causal)
         ref_lse = reference_lse(q.float(), k.float(), causal)
         err = (out.float() - ref).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         tol = TOL[dtype_name]
         ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)
-                  and torch.allclose(lse, ref_lse, **LSE_TOL))
-        save = (dtype_name, bh, s, skv, causal) == train_case
-        kernel_ms = cuda_time_ms(lambda: flash_attention_fwd(
-            q, k, v, causal=causal, save_lse=save))
-        plain_ms = cuda_time_ms(
-            lambda: (reference_attention(q, k, v, causal),
-                     reference_lse(q, k, causal) if save else None))
-        kw = _sdpa_kwargs(device, s, skv, causal)
+                  and torch.allclose(lse, ref_lse, **LSE_TOL)
+                  and designs[design] == 1 and sum(designs.values()) == 1)
+        save = case == train_case
+
+        def kernel():
+            return flash_attention_fwd(q, k, v, causal=causal,
+                                       save_lse=save)
+
+        def prev():
+            return flash_attention_fwd_simt(q, k, v, causal=causal,
+                                            save_lse=save)
+
         b = bh // BH  # [B, 12 heads, S, D] for SDPA
-        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q.view(b, -1, s, HEAD_DIM), k.view(b, -1, skv, HEAD_DIM),
-            v.view(b, -1, skv, HEAD_DIM), **kw))
+        kw = _sdpa_kwargs(device, s, skv, causal)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q.view(b, -1, s, d), k.view(b, -1, skv, d),
+                v.view(b, -1, skv, d), **kw)
+
+        timed = {}
+        is_main = ((dtype_name, s, skv, causal) == MAIN_CASE and bh == BH
+                   and d == HEAD_DIM)
+        compare = is_main or save
+        if compare:  # the SIMT design in turns with the wgmma one
+            order = (("prev", prev), ("new", kernel), ("new", kernel),
+                     ("prev", prev))
+            for name, fn in order:
+                timed.setdefault(name, []).append(device_ms(fn)[0])
+            kernel_ms = sum(timed["new"]) / 2
+        else:
+            kernel_ms = device_ms(kernel)[0]
+        plain_ms = device_ms(
+            lambda: (reference_attention(q, k, v, causal),
+                     reference_lse(q, k, causal) if save else None),
+            reps=5)[0]
+        library_ms, library_kernels = device_ms(sdpa)
         bound_ms, bound_by, nbytes, ops = attention_bound(
-            bh, s, skv, HEAD_DIM, causal, dtype_name, q.element_size(),
+            bh, s, skv, d, causal, dtype_name, q.element_size(),
             save_lse=save)
-        row = dict(dtype=dtype_name, BH=bh, S=s, Skv=skv, causal=causal,
-                   save_lse=save, max_abs_err=err, lse_max_abs_err=lse_err,
-                   tol=tol, ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, bytes=nbytes, ops=ops)
+        row = dict(dtype=dtype_name, BH=bh, S=s, Skv=skv, D=d,
+                   causal=causal, save_lse=save, design=design,
+                   designs=designs, max_abs_err=err,
+                   lse_max_abs_err=lse_err, tol=tol, ok=ok,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_kernels=library_kernels,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   ops=ops, tflops=ops / (kernel_ms * 1e-3) / 1e12)
+        extra = ""
+        if compare:
+            row["kernel_event_ms"] = cuda_time_ms(kernel)
+            row["library_event_ms"] = cuda_time_ms(sdpa)
+            row["prev_ms"] = sum(timed["prev"]) / 2
+            row["prev_tflops"] = ops / (row["prev_ms"] * 1e-3) / 1e12
+            row["turns_ms"] = timed
+            extra = (f" [turns prev {timed['prev'][0]:.4f} new "
+                     f"{timed['new'][0]:.4f} new {timed['new'][1]:.4f} prev "
+                     f"{timed['prev'][1]:.4f}] prev_ms={row['prev_ms']:.4f} "
+                     f"({row['prev_tflops']:.1f} TFLOP/s) event_ms kernel "
+                     f"{row['kernel_event_ms']:.4f} sdpa "
+                     f"{row['library_event_ms']:.4f}; sdpa kernels: "
+                     f"{short_names(library_kernels)}")
         rows.append(row)
         log(f"[kernels] flash_fwd {dtype_name:8s} BH={bh} S={s:4d} "
-            f"Skv={skv:4d} D={HEAD_DIM} causal={causal!s:5s} "
+            f"Skv={skv:4d} D={d} causal={causal!s:5s} design={design} "
             f"max_abs_err={err:.3e} (tol {tol:g}, atol=rtol) "
             f"lse_err={lse_err:.2e} {'ok' if ok else 'FAIL'} "
             f"kernel_ms={kernel_ms:.4f}{' (lse)' if save else ''} "
-            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-            f"bound_ms={bound_ms:.5f} ({bound_by})")
-        if (dtype_name, s, skv, causal) == MAIN_CASE and bh == BH:
+            f"({row['tflops']:.1f} TFLOP/s) plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
+            f"({bound_by}){extra}")
+        if is_main:
             main = row
         if save:
             train = row
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"flash_fwd disagrees with its plain version "
-                             f"in {len(bad)} case(s): {bad}")
+                             f"or took another design in {len(bad)} "
+                             f"case(s): {bad}")
     return rows, main, train
 
 
@@ -304,23 +410,36 @@ def phase_backward(device):
         del want
         if case == main_case:
             delta = reference_delta(o, do)
-            row["dq_ms"] = cuda_time_ms(lambda: flash_attention_dq(
-                q, k, v, do, lse, delta, causal))
-            row["dkv_ms"] = cuda_time_ms(lambda: flash_attention_dkv(
-                q, k, v, do, lse, delta, causal))
-            row["dq_plain_ms"] = cuda_time_ms(lambda: reference_flash_dq(
-                q, k, v, do, lse, delta, causal), reps=5)
-            row["dkv_plain_ms"] = cuda_time_ms(lambda: reference_flash_dkv(
-                q, k, v, do, lse, delta, causal), reps=5)
+
+            def dq():
+                return flash_attention_dq(q, k, v, do, lse, delta, causal)
+
+            def dkv():
+                return flash_attention_dkv(q, k, v, do, lse, delta, causal)
+
+            row["dq_ms"] = device_ms(dq)[0]
+            row["dkv_ms"] = device_ms(dkv)[0]
+            row["dq_event_ms"] = cuda_time_ms(dq)
+            row["dkv_event_ms"] = cuda_time_ms(dkv)
+            row["dq_plain_ms"] = device_ms(lambda: reference_flash_dq(
+                q, k, v, do, lse, delta, causal), reps=5)[0]
+            row["dkv_plain_ms"] = device_ms(lambda: reference_flash_dkv(
+                q, k, v, do, lse, delta, causal), reps=5)[0]
             # the yardstick: SDPA's backward for the pair (dq, dk, dv
-            # together) on a retained graph
+            # together) on a retained graph; only the backward is traced
             b = bh // 12
             leaves = [t.view(b, 12, -1, d).detach().requires_grad_()
                       for t in (q, k, v)]
             out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
             do4 = do.view(b, 12, s, d)
-            row["pair_library_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
-                out, leaves, do4, retain_graph=True))
+
+            def pair():
+                return torch.autograd.grad(out, leaves, do4,
+                                           retain_graph=True)
+
+            row["pair_library_ms"], row["pair_library_kernels"] = (
+                device_ms(pair))
+            row["pair_library_event_ms"] = cuda_time_ms(pair)
             for kernel in ("dq", "dkv"):
                 bound_ms, bound_by, nbytes, ops = backward_bound(
                     kernel, bh, s, skv, d, causal, dtype_name,
@@ -336,7 +455,11 @@ def phase_backward(device):
                   f"dkv_ms={row['dkv_ms']:.4f} (plain "
                   f"{row['dkv_plain_ms']:.4f}, bound "
                   f"{row['dkv_bound_ms']:.5f} {row['dkv_bound_by']}) "
-                  f"sdpa_bwd_pair_ms={row['pair_library_ms']:.4f}"
+                  f"sdpa_bwd_pair_ms={row['pair_library_ms']:.4f} "
+                  f"(event_ms dq {row['dq_event_ms']:.4f} dkv "
+                  f"{row['dkv_event_ms']:.4f} sdpa pair "
+                  f"{row['pair_library_event_ms']:.4f}; sdpa kernels: "
+                  f"{short_names(row['pair_library_kernels'])})"
                   if case == main_case else "")
         log(f"[kernels] flash_bwd {dtype_name:8s} BH={bh} S={s:4d} "
             f"Skv={skv:4d} D={d} causal={causal!s:5s} max_abs_err "
@@ -358,7 +481,7 @@ def phase_forward(device, preset="gpt2-small", batch=8, seq=1024):
 
     from ray_memory_management_tpu_torch.models import gpt
     from ray_memory_management_tpu_torch.ops.flash_attention import (
-        launch_count, reset_launch_count)
+        fwd_design_counts, launch_count, reset_launch_count)
 
     cfg = gpt.PRESETS[preset]
     gen = torch.Generator(device=device).manual_seed(0)
@@ -374,6 +497,7 @@ def phase_forward(device, preset="gpt2-small", batch=8, seq=1024):
         sync()
         fwd_s = time.perf_counter() - t0
         launches = launch_count()
+        designs = fwd_design_counts()
         ref = gpt.forward(params, toks, dataclasses.replace(
             cfg, attention="ref"))
         f32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -390,17 +514,20 @@ def phase_forward(device, preset="gpt2-small", batch=8, seq=1024):
     log(f"[forward] {preset} B={batch} S={seq}: bf16 kernel-vs-ref "
         f"max_abs_err={err:.4e} (limit 2 x bf16 noise floor "
         f"{floor:.4e}); fp32 kernel-vs-ref max_abs_err={err32:.3e} "
-        f"(tol {tol32:g}); flash launches={launches} "
-        f"(expect {cfg.n_layers}); first bf16 forward {fwd_s * 1e3:.1f} ms")
+        f"(tol {tol32:g}); flash launches={launches} {designs} "
+        f"(expect {cfg.n_layers}, all wgmma); first bf16 forward "
+        f"{fwd_s * 1e3:.1f} ms")
     if not (finite and shape_ok):
         raise AssertionError("forward logits are not finite or misshaped")
     if err > 2 * floor or err32 > tol32:
         raise AssertionError("forward with the kernel disagrees with "
                              "attention='ref'")
-    if device.type == "cuda" and launches != cfg.n_layers:
-        raise AssertionError(f"expected {cfg.n_layers} flash launches, got "
-                             f"{launches}")
-    return dict(err=err, floor=floor, err32=err32, launches=launches)
+    if device.type == "cuda" and (launches != cfg.n_layers
+                                  or designs["wgmma"] != cfg.n_layers):
+        raise AssertionError(f"expected {cfg.n_layers} flash launches, all "
+                             f"wgmma, got {launches} {designs}")
+    return dict(err=err, floor=floor, err32=err32, launches=launches,
+                designs=designs)
 
 
 def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
@@ -412,7 +539,7 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
 
     from ray_memory_management_tpu_torch.models import gpt
     from ray_memory_management_tpu_torch.ops.flash_attention import (
-        launch_counts, reset_launch_count)
+        fwd_design_counts, launch_counts, reset_launch_count)
     from ray_memory_management_tpu_torch.utils import gpu_bench
 
     cfg = dataclasses.replace(gpt.PRESETS[preset], attention="flash")
@@ -432,6 +559,7 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
     reset_launch_count()
     loss_k, gk = grads(cfg)
     launches = launch_counts()
+    designs = fwd_design_counts()
     loss_r, gr = grads(dataclasses.replace(cfg, attention="ref"))
     loss_r32, gr32 = grads(dataclasses.replace(f32, attention="ref"))
     loss_k32, gk32 = grads(f32)
@@ -455,18 +583,21 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
         f"(limit 2 x bf16 noise floor {worst['floor']:.3e}); fp32 worst "
         f"leaf {worst32['leaf']} max_abs_err={worst32['err32']:.3e} "
         f"(tol {tol32:g} x max|grad| {worst32['scale32']:.3e}); launches "
-        f"{launches} (expect {cfg.n_layers} each)")
+        f"{launches} {designs} (expect {cfg.n_layers} each, forward all "
+        f"wgmma)")
     if not finite:
         raise AssertionError("grad: non-finite gradients")
     if not (bf16_ok and fp32_ok):
         raise AssertionError(f"grad: gradients with the kernels disagree "
                              f"with attention='ref': {rows}")
-    if any(n != cfg.n_layers for n in launches.values()):
-        raise AssertionError(f"grad: launches {launches}, expected "
-                             f"{cfg.n_layers} of each kernel")
+    if (any(n != cfg.n_layers for n in launches.values())
+            or designs["wgmma"] != cfg.n_layers):
+        raise AssertionError(f"grad: launches {launches} {designs}, "
+                             f"expected {cfg.n_layers} of each kernel, "
+                             f"the forward's all wgmma")
     return dict(loss_bf16=loss_k, loss_ref_bf16=loss_r, loss_fp32=loss_k32,
                 loss_ref_fp32=loss_r32, worst_bf16=worst, worst_fp32=worst32,
-                launches=launches)
+                launches=launches, designs=designs)
 
 
 def _serve_requests(vocab, seed):
@@ -514,7 +645,7 @@ def phase_serve(device, preset="gpt2-small", max_batch_size=8,
     import torch
 
     from ray_memory_management_tpu_torch.ops.flash_attention import (
-        launch_count, reset_launch_count)
+        fwd_design_counts, launch_count, reset_launch_count)
     from ray_memory_management_tpu_torch.serve.llm import LLMServer
 
     srv = LLMServer(preset=preset, max_batch_size=max_batch_size,
@@ -527,6 +658,7 @@ def phase_serve(device, preset="gpt2-small", max_batch_size=8,
         reset_launch_count()
         runs = [_burst(srv, reqs)]
         launches = launch_count()
+        designs = fwd_design_counts()
         stats = srv.stats()
         runs += [_burst(srv, reqs) for _ in range(bursts - 1)]
     finally:
@@ -555,7 +687,8 @@ def phase_serve(device, preset="gpt2-small", max_batch_size=8,
         f"{gen_tokens / wall:.1f} generated tokens/s; latency over "
         f"{len(lat_ms)} requests median {float(np.median(lat_ms)):.1f} ms "
         f"max {lat_ms[-1]:.1f} ms; flash launches in the first burst="
-        f"{launches} (need >= {need}); pages_in_use after it={pages}; "
+        f"{launches} {designs} (need >= {need}, all wgmma); pages_in_use "
+        f"after it={pages}; "
         f"kv_backpressure={stats['kv']['kv_backpressure']}")
     if not (budget_ok and vocab_ok):
         raise AssertionError("serve: a request missed its token budget or "
@@ -565,7 +698,10 @@ def phase_serve(device, preset="gpt2-small", max_batch_size=8,
     if device.type == "cuda" and launches < need:
         raise AssertionError(f"serve: {launches} flash launches, fewer than "
                              f"one per layer per request ({need})")
-    return dict(launches=launches, walls_s=walls,
+    if device.type == "cuda" and designs["wgmma"] != launches:
+        raise AssertionError(f"serve: flash launches by design {designs}; "
+                             f"every one of {launches} should be wgmma")
+    return dict(launches=launches, designs=designs, walls_s=walls,
                 requests_per_s=len(reqs) / wall,
                 tokens_per_s=gen_tokens / wall, requests=len(reqs),
                 latency_ms_median=float(np.median(lat_ms)),
@@ -626,7 +762,7 @@ def phase_train(device, steps=8):
 
     from ray_memory_management_tpu_torch.models import gpt
     from ray_memory_management_tpu_torch.ops.flash_attention import (
-        launch_counts, reset_launch_count)
+        fwd_design_counts, launch_counts, reset_launch_count)
     from ray_memory_management_tpu_torch.utils.gpu_bench import (
         train_step_mfu)
 
@@ -636,6 +772,7 @@ def phase_train(device, steps=8):
     r = train_step_mfu("gpt2-small", batch_size=TRAIN_B, seq_len=TRAIN_S,
                        steps=steps, device=device)
     launches = launch_counts()
+    designs = fwd_design_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     losses = r["losses"]
     log(f"[train] gpt2-small B={TRAIN_B} S={TRAIN_S} on {r['device']}: "
@@ -643,15 +780,18 @@ def phase_train(device, steps=8):
         f"step_ms={r['step_ms']:.2f} tokens_per_s={r['tokens_per_s']:.1f} "
         f"mfu={r['mfu']:.4f} (PaLM accounting, 989 TFLOP/s peak) "
         f"n_params={r['n_params']} peak_mem={peak_gb:.2f} GB; launches "
-        f"{launches} (need {n_layers * steps} each)")
+        f"{launches} {designs} (need {n_layers * steps} each, the "
+        f"forward's all wgmma)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("train: non-finite loss")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: the loss did not fall: {losses}")
-    if any(n != n_layers * steps for n in launches.values()):
-        raise AssertionError(f"train: launches {launches}, expected "
-                             f"{n_layers * steps} of each kernel")
-    return dict(r, launches=launches, peak_mem_gb=peak_gb)
+    if (any(n != n_layers * steps for n in launches.values())
+            or designs["wgmma"] != n_layers * steps):
+        raise AssertionError(f"train: launches {launches} {designs}, "
+                             f"expected {n_layers * steps} of each kernel, "
+                             f"the forward's all wgmma")
+    return dict(r, launches=launches, designs=designs, peak_mem_gb=peak_gb)
 
 
 def main() -> int:
@@ -709,6 +849,13 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        # the design every bf16 launch of both main paths took, and the
+        # previous (SIMT) design's time in the same call
+        "design": main_row["design"],
+        "prev_ms": main_row["prev_ms"],
+        "tflops": main_row["tflops"],
+        "kernel_event_ms": main_row["kernel_event_ms"],
+        "library_event_ms": main_row["library_event_ms"],
         # the training path: its launches, and the lse variant at BH = 96
         "launches_train": train["launches"]["flash_attention_fwd"],
         "max_abs_err_train": train_fwd["max_abs_err"],
@@ -717,6 +864,10 @@ def main() -> int:
         "bound_ms_train": train_fwd["bound_ms"],
         "bound_by_train": train_fwd["bound_by"],
         "library_ms_train": train_fwd["library_ms"],
+        "prev_ms_train": train_fwd["prev_ms"],
+        "tflops_train": train_fwd["tflops"],
+        "kernel_event_ms_train": train_fwd["kernel_event_ms"],
+        "library_event_ms_train": train_fwd["library_event_ms"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",
@@ -730,6 +881,8 @@ def main() -> int:
         "bound_by": bwd["dq_bound_by"],
         "library_ms": bwd["pair_library_ms"],
         "library_covers": pair,
+        "kernel_event_ms": bwd["dq_event_ms"],
+        "library_event_ms": bwd["pair_library_event_ms"],
     }, {
         "name": "flash_attention_dkv",
         "route": "cuda",
@@ -743,6 +896,8 @@ def main() -> int:
         "bound_by": bwd["dkv_bound_by"],
         "library_ms": bwd["pair_library_ms"],
         "library_covers": pair,
+        "kernel_event_ms": bwd["dkv_event_ms"],
+        "library_event_ms": bwd["pair_library_event_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,43 +4,73 @@
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` launched by `_flash_fwd`
 // (ray_memory_management_tpu/ops/flash_attention.py): online-softmax
-// blockwise attention over q [BH, S, D], k/v [BH, Skv, D], fp32 or bf16,
-// writing o [BH, S, D] in the input dtype and, when the caller passes a
-// pointer, lse [BH, S] fp32 (= m + log l, for the backward kernels).
+// blockwise attention over q [BH, S, D], k/v [BH, Skv, D], writing o
+// [BH, S, D] in the input dtype and, when the caller passes a pointer,
+// lse [BH, S] fp32 (= m + log l, for the backward kernels).
 //
-// Arithmetic follows the TPU kernel: inputs are widened to fp32, q is
-// multiplied by `scale` before QK^T, the running max m starts at -1e30,
-// the denominator l is clamped at 1e-30 before the divide, and the causal
-// mask keeps col <= row + off with off = Skv - S (bottom-right aligned).
-// Key tiles that lie wholly above the diagonal (k0 > q0 + 63 + off) are
-// skipped. The TPU picked divisor blocks; here the ragged tail of q and of
-// k/v is masked instead: tail q rows are computed but never stored, tail
-// key columns score -inf so they add exactly nothing to m, l or acc.
-// (With S > Skv and causal, a query row that sees no key averages the
-// values of the tiles visited, as the TPU kernel does for its blocks;
-// the model never asks for that: its prefill has S == Skv.)
+// Arithmetic follows the TPU kernel: the running max m starts at -1e30,
+// l sums the fp32 p and is clamped at 1e-30 before the divide, and the
+// causal mask keeps col <= row + off with off = Skv - S (bottom-right
+// aligned). Key tiles wholly above the diagonal (k0 > q0 + 63 + off) are
+// skipped; only tiles that straddle it are masked. The TPU picked divisor
+// blocks; here the ragged tail of q and of k/v is masked instead: tail q
+// rows are computed but never stored, tail key columns score -inf so they
+// add exactly nothing to m, l or acc. (With S > Skv and causal, a query
+// row that sees no key averages the values of the tiles visited, as the
+// TPU kernel does for its blocks; the model never asks for that: its
+// prefill has S == Skv.)
 //
-// Design: one CTA of 256 threads per (bh, 64-row q tile); a loop inside
-// the CTA walks 64-row K/V tiles staged in shared memory (fp32, padded
-// rows so the QK^T reads are free of bank conflicts), which replaces the
-// TPU's sequential innermost grid axis. Each thread owns a 4x4 block of
-// the score tile and a 4 x (DP/16) block of the output accumulator;
-// row max and row sum are reduced across the 16 threads of a row group
-// with warp shuffles. Products run in fp32 on the CUDA cores, as the TPU
-// kernel computes them in fp32.
+// Two designs, chosen in rmt_flash_fwd by dtype and head dim:
 //
-// What bounds it on this card: at the serving prefill shape (BH = 12,
-// S = 992, D = 64, bf16, causal) the function moves about 6.1 MB of
-// q/k/v/o (1.8 us at 3.35 TB/s) and needs about 1.5 GFLOP (1.5 us at the
-// 989 TFLOP/s bf16 tensor-core rate), so its bound is memory and launch.
-// This first version runs the products on fp32 CUDA cores (67 TFLOP/s
-// peak) from shared memory, so it sits far above that bound: wgmma with
-// TMA-fed tiles is the later step that closes the gap.
+// * wgmma (bf16, D = 64 or 128: both main paths). One CTA per (bh,
+//   64-row q tile), 256 threads: warpgroup 0 is the producer (one thread
+//   issues TMA loads, the group gives its registers away with setmaxnreg),
+//   warpgroup 1 the consumer. Q is loaded once; K and V tiles of 64 keys
+//   stream through a 2-stage ring of 128B-swizzled bf16 tiles in shared
+//   memory, with a full barrier each for K and V and an empty barrier per
+//   stage. S = Q K^T is wgmma m64n64k16 with both operands K-major in
+//   shared memory; the scale goes on the fp32 scores after the product
+//   (q * scale in bf16 would round for D = 128); the softmax runs in fp32
+//   on the accumulator fragment, row max across the quad that shares a
+//   row; P is rounded to bf16 in registers and is the A operand of
+//   O += P V (wgmma m64nDk16, A from registers, V as an MN-major B with
+//   the transpose bit set; no staged V^T). That P rounding is the one
+//   rounding the TPU kernel does not make. Tensor maps are 3-D [BH, rows,
+//   D], encoded on the host per call, so TMA's zero fill stops at each
+//   head's end; cuTensorMapEncodeTiled comes through
+//   cudaGetDriverEntryPoint, so the library needs no -lcuda. Two CTAs fit
+//   an SM (launch bounds, 42 KB of shared memory at D = 64, 83 KB at 128):
+//   at the serving prefill (BH = 12, S = 992) the 192 CTAs all run in one
+//   wave on 132 SMs, where 128-row CTAs would leave 36 SMs idle; at the
+//   training shape (BH = 96, S = 1024) 1536 CTAs run in about six waves,
+//   heaviest causal tiles first. D = 16 and 32 (rows under 128 bytes,
+//   which would need a narrower swizzle) take the SIMT design.
+//
+// * SIMT (fp32, and bf16 with another head dim; also exported as
+//   rmt_flash_fwd_simt so its time can be read beside the wgmma design).
+//   One CTA of 256 threads per (bh, 64-row q tile); a loop walks 64-row
+//   K/V tiles widened to fp32 in shared memory; q is multiplied by scale
+//   before QK^T as in the TPU kernel; products are fp32 FMAs on the CUDA
+//   cores, which fp32 needs: the fp32 route is held to 1e-4, which TF32
+//   tensor-core products could not meet.
+//
+// What bounds it on this card: at the training shape (BH = 96, S = 1024,
+// D = 64, bf16, causal, lse) the function moves 50.7 MB (15.1 us at
+// 3.35 TB/s) and needs 12.9 GFLOP (13.0 us at the 989 TFLOP/s bf16
+// tensor-core rate): bytes, barely. The SIMT design runs its products at
+// about a third of the 67 TFLOP/s fp32 peak (0.55 ms there on an H100
+// 80GB HBM3 at 700 W); the wgmma design puts them on the tensor cores and
+// keeps the tiles bf16 in shared memory (0.066 ms, 196 TFLOP/s, on the
+// same card; chip_smoke.py). What holds it back now is the softmax: one
+// tile's softmax does not overlap the next tile's products inside a
+// CTA, only the second CTA on the SM fills those gaps.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -248,29 +278,538 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                         stream);
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma design (bf16, D = 64 or 128).
+
+constexpr int kWgThreads = 256;     // warpgroup 0 loads, warpgroup 1 computes
+constexpr int kStages = 2;          // K/V ring depth
+constexpr int kSlabCols = 64;       // bf16 columns in one 128-byte row
+constexpr int kSlabBytes = 64 * 128;  // one [64 rows][64 cols] bf16 slab
+// setmaxnreg: 40 + 216 = 2 x 128, the entry count of a 2-CTA/SM launch.
+// ptxas still compiles the consumer within 128 registers (the launch
+// bound), which it fits without spills; the split pays once a consumer
+// needs more, as with one CTA per SM.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 216;
+constexpr float kLog2e = 1.4426950408889634f;
+// a wait that has not completed after this many polls is a hang: trap
+// instead, so a fault in the pipeline surfaces as a launch error
+constexpr uint32_t kMaxPolls = 1u << 24;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity), "r"(1000u)  // suspend hint, ns
+        : "memory");
+    if (done) return;
+    if (n == kMaxPolls) __trap();
+  }
+}
+
+// one [64 rows][64 cols] box of a [BH, rows, D] tensor into 128B-swizzled
+// shared memory; rows past the head's end arrive as zeros
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int row,
+                                            int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(bh)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// A from registers; B (V) is MN-major: the transpose bit is set
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// A from registers; B (V) is MN-major: the transpose bit is set
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, "
+      "%66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_m64n64k16(d, a, db);
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_m64n128k16(d, a, db);
+}
+
+template <int D>
+struct WgLayout {
+  static constexpr int kSlabs = D / kSlabCols;
+  static constexpr int kTileBytes = kSlabs * kSlabBytes;  // 64 rows x D
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTileBytes;                   // + stage * tile
+  static constexpr int kV = kK + kStages * kTileBytes;    // + stage * tile
+  static constexpr int kBars = kV + kStages * kTileBytes;
+  // q_full, k_full[kStages], v_full[kStages], empty[kStages]
+  static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages);
+  // the tiles must start on 1024 bytes for the 128B swizzle
+  static constexpr int kSmem = kBytes + 1024;
+};
+
+// Key tiles a CTA of 64 query rows from q0 visits: all of them, or under
+// `causal` those that are not wholly above the diagonal (may be 0).
+__device__ __forceinline__ int key_tiles(int q0, int Skv, int off,
+                                         int causal) {
+  int n = (Skv + kBlockK - 1) / kBlockK;
+  if (causal) {
+    const int last = q0 + kBlockQ - 1 + off;  // last visible column
+    n = last < 0 ? 0 : min(n, last / kBlockK + 1);
+  }
+  return n;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 2)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int S, int Skv,
+                           float scale, int causal) {
+  using L = WgLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBars;
+  const uint32_t bar_k = bar_q + 8;                 // + 8 * stage
+  const uint32_t bar_v = bar_k + 8 * kStages;
+  const uint32_t bar_empty = bar_v + 8 * kStages;
+
+  const int bh = blockIdx.x;
+  // causal tiles near the bottom do the most work: schedule them first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
+  const int off = Skv - S;
+  const int n_k = key_tiles(q0, Skv, off, causal);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid != 0 || n_k == 0) return;
+    mbar_expect_tx(bar_q, L::kTileBytes);
+    for (int c = 0; c < L::kSlabs; ++c)
+      tma_load_3d(base + L::kQ + c * kSlabBytes, &tq, bar_q, c * kSlabCols,
+                  q0, bh);
+    for (int t = 0; t < n_k; ++t) {
+      const int st = t % kStages;
+      if (t >= kStages) mbar_wait(bar_empty + 8 * st, ((t / kStages) & 1) ^ 1);
+      const int k0 = t * kBlockK;
+      mbar_expect_tx(bar_k + 8 * st, L::kTileBytes);
+      for (int c = 0; c < L::kSlabs; ++c)
+        tma_load_3d(base + L::kK + st * L::kTileBytes + c * kSlabBytes, &tk,
+                    bar_k + 8 * st, c * kSlabCols, k0, bh);
+      mbar_expect_tx(bar_v + 8 * st, L::kTileBytes);
+      for (int c = 0; c < L::kSlabs; ++c)
+        tma_load_3d(base + L::kV + st * L::kTileBytes + c * kSlabBytes, &tv,
+                    bar_v + 8 * st, c * kSlabCols, k0, bh);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: 64 query rows ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int ct = tid - 128;
+  const int warp = ct / 32, lane = ct % 32;
+  const int g = lane / 4, quad = lane % 4;
+  // this thread's two rows: r0 and r0 + 8
+  const int r0 = q0 + 16 * warp + g;
+
+  float acc[D / 2];  // O: n8 block j holds cols 8j + 2 quad + {0, 1}
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegBig, kNegBig};
+  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+
+  if (n_k > 0) mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_k; ++t) {
+    const int st = t % kStages;
+    const uint32_t parity = (t / kStages) & 1;
+    const int k0 = t * kBlockK;
+    const uint32_t k_tile = base + L::kK + st * L::kTileBytes;
+    const uint32_t v_tile = base + L::kV + st * L::kTileBytes;
+
+    // S = Q K^T: both operands K-major from shared memory; a k-step of
+    // 16 columns is 32 bytes into the 128-byte swizzled row
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    mbar_wait(bar_k + 8 * st, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t step = (kk / 4) * kSlabBytes + (kk % 4) * 32;
+      wgmma_ss_m64n64k16(s, gmma_desc(base + L::kQ + step, 16, 1024),
+                         gmma_desc(k_tile + step, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= scale;
+    if (k0 + kBlockK > Skv || (causal && k0 + kBlockK - 1 > q0 + off)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + 8 * j + 2 * quad + e;
+            const int row = r0 + 8 * h;
+            float& x = s[4 * j + 2 * h + e];
+            if (col >= Skv)
+              x = -INFINITY;  // ragged tail: contributes nothing
+            else if (causal && col > row + off)
+              x = kNegBig;
+          }
+    }
+
+    // online softmax in fp32 on the accumulator fragment; the 4 threads
+    // of a quad share a row
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNegBig;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      alpha[h] = exp2f((m[h] - m_new) * kLog2e);
+      m[h] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * h + e];
+          x = exp2f((x - m_new) * kLog2e);
+          rs += x;  // l sums the fp32 p
+        }
+      l[h] = l[h] * alpha[h] + rs;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j + 0] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+
+    // P, rounded to bf16, becomes the register A operand of P V: the
+    // accumulator layout of two n8 blocks is the A layout of one k16 step
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+
+    // O += P V: V is [key][d], MN-major for this product (transpose bit);
+    // 16 keys are two 8-row groups, 2048 bytes; the second 64 columns of
+    // D = 128 lie one slab further (the leading byte offset)
+    mbar_wait(bar_v + 8 * st, parity);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv(acc, pa[kk], gmma_desc(v_tile + kk * 2048, kSlabBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);  // read until here
+    if (lane == 0) mbar_arrive(bar_empty + 8 * st);  // the stage is free
+  }
+
+  // epilogue: o = acc / max(l, 1e-30) in bf16, lse = m + log l; rows past
+  // S are never stored
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float li = fmaxf(lt, 1e-30f);
+    const int row = r0 + 8 * h;
+    if (row >= S) continue;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(blockIdx.x) * S + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const uint32_t v =
+          pack_bf16(acc[4 * j + 2 * h] / li, acc[4 * j + 2 * h + 1] / li);
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * quad) = v;
+    }
+    if (lse != nullptr && quad == 0)
+      lse[static_cast<size_t>(blockIdx.x) * S + row] = m[h] + logf(li);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side of the wgmma design.
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no libcuda link)
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// a 3-D [bh, rows, d] bf16 map read in [1, 64, 64] boxes, 128B swizzle
+cudaError_t encode_map(CUtensorMap* map, const void* ptr, int bh, int rows,
+                       int d) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {kSlabCols, kBlockK, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+         dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int bh, int s, int skv,
+                         float scale, int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_map(&tq, q, bh, s, D);
+  if (err == cudaSuccess) err = encode_map(&tk, k, bh, skv, D);
+  if (err == cudaSuccess) err = encode_map(&tv, v, bh, skv, D);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = WgLayout<D>::kSmem;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (s + kBlockQ - 1) / kBlockQ);
+  flash_fwd_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      s, skv, scale, causal);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int bh, int s, int skv, int d) {
+  return bh <= 0 || s <= 0 || skv <= 0 || d <= 0 || d > 128 ||
+         (s + kBlockQ - 1) / kBlockQ > 65535;
+}
+
+cudaError_t launch_simt(const void* q, const void* k, const void* v,
+                        void* o, void* lse, int bh, int s, int skv, int d,
+                        float scale, int causal, int dtype,
+                        cudaStream_t st) {
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, o, lse, bh, s, skv, d, scale, causal,
+                           st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, s, skv, d, scale,
+                                   causal, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. lse may be null (inference). Returns
-// the cudaError_t of the launch (0 = launched).
+// the cudaError_t of the launch (0 = launched). bf16 with D = 64 or 128
+// takes the wgmma design, everything else the SIMT one (the rule
+// ops/flash_attention.py `fwd_design` states for the launch counts).
 int rmt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int s, int skv, int d, float scale,
                   int causal, int dtype, void* stream) {
-  if (bh <= 0 || s <= 0 || skv <= 0 || d <= 0 || d > 128)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((s + kBlockQ - 1) / kBlockQ > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(bh, s, skv, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(q, k, v, o, lse, bh, s, skv, d, scale, causal, st);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, s, skv, d, scale,
-                                  causal, st);
+  if (dtype == 1 && d == 64)
+    err = launch_wgmma<64>(q, k, v, o, lse, bh, s, skv, scale, causal, st);
+  else if (dtype == 1 && d == 128)
+    err = launch_wgmma<128>(q, k, v, o, lse, bh, s, skv, scale, causal, st);
   else
-    err = cudaErrorInvalidValue;
+    err = launch_simt(q, k, v, o, lse, bh, s, skv, d, scale, causal, dtype,
+                      st);
   return static_cast<int>(err);
+}
+
+// The SIMT design whatever the dtype and head dim: only for timing it
+// beside the wgmma design; the main path never calls it.
+int rmt_flash_fwd_simt(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int bh, int s, int skv, int d, float scale,
+                       int causal, int dtype, void* stream) {
+  if (bad_shape(bh, s, skv, d)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_simt(q, k, v, o, lse, bh, s, skv, d, scale,
+                                      causal, dtype,
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 const char* rmt_cuda_error_string(int err) {

@@ -10,6 +10,14 @@ at first use. Its ``_flash_attention`` custom_vjp becomes
 where the tensors lie: a CUDA tensor launches the kernels (or raises;
 there is no fallback), a CPU tensor takes the plain versions through the
 same autograd glue.
+
+The forward has two designs, picked by :func:`fwd_design`. bf16 with a
+head dim of 64 or 128 (both main paths) takes the ``wgmma`` kernel: its
+products run on the tensor cores from TMA-fed bf16 tiles, because the
+SIMT kernel's fp32 FMAs were what bounded the forward on the H100 (37x
+above its bound at the training shape). fp32, the parity route held to
+1e-4, and any other head dim take the ``simt`` kernel, fp32 FMAs on the
+CUDA cores.
 """
 
 from __future__ import annotations
@@ -27,8 +35,13 @@ DQ = "flash_attention_dq"
 DKV = "flash_attention_dkv"
 MAX_HEAD_DIM = 128
 
-# kernel launches since the last reset_launch_count(), by kernel
+WGMMA, SIMT = "wgmma", "simt"  # the forward kernel's two designs
+WGMMA_HEAD_DIMS = (64, 128)
+
+# kernel launches since the last reset_launch_count(), by kernel, and the
+# forward's by design
 _launches: Dict[str, int] = {FWD: 0, DQ: 0, DKV: 0}
+_fwd_designs: Dict[str, int] = {WGMMA: 0, SIMT: 0}
 
 
 def launch_count() -> int:
@@ -43,9 +56,24 @@ def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def fwd_design_counts() -> Dict[str, int]:
+    """Forward launches since the last :func:`reset_launch_count`, by the
+    design that ran: ``{"wgmma": n, "simt": n}``."""
+    return dict(_fwd_designs)
+
+
 def reset_launch_count() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, _fwd_designs):
+        for name in counts:
+            counts[name] = 0
+
+
+def fwd_design(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward design ``rmt_flash_fwd`` launches for these inputs (the
+    C function applies the same rule): ``wgmma`` for bf16 with a head dim
+    of 64 or 128, ``simt`` otherwise."""
+    return (WGMMA if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
+            else SIMT)
 
 
 def _scores(q, k, causal: bool, scale: float):
@@ -122,7 +150,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _BWD_SYMBOL = {DQ: "rmt_flash_bwd_dq", DKV: "rmt_flash_bwd_dkv"}
 _SIGNATURES = {
-    FWD: {"rmt_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P]},
+    FWD: {"rmt_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+          "rmt_flash_fwd_simt": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P]},
     "flash_attention_bwd": {
         "rmt_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P],
         "rmt_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P],
@@ -186,15 +215,11 @@ def _raise_on(err: int, lib: ctypes.CDLL, fn: str) -> None:
         raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {err})")
 
 
-def flash_attention_fwd(q, k, v, causal: bool = True,
-                        scale: Optional[float] = None,
-                        save_lse: bool = False):
-    """Launch the forward kernel on [BH, S, D] / [BH, Skv, D] CUDA tensors.
-
-    Returns ``o`` ([BH, S, D], input dtype), or ``(o, lse)`` with lse
-    [BH, S, 1] fp32 when ``save_lse``. Raises on anything the kernel does
-    not take: a non-CUDA tensor, a dtype other than fp32/bf16, mixed
-    dtypes or devices, a non-contiguous tensor, or D > 128."""
+def _launch_fwd(symbol: str, q, k, v, causal: bool, scale: Optional[float],
+                save_lse: bool):
+    """Check the forward's inputs, launch ``symbol`` of the forward
+    library on them, and return ``(o, lse)`` (lse None unless
+    ``save_lse``) and whether it launched."""
     BH, S, Skv, D = _check("flash_attention_fwd",
                            (("q", q), ("k", k), ("v", v)), q, k)
     scale = scale if scale is not None else D ** -0.5
@@ -202,18 +227,47 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     lse = (torch.empty((BH, S, 1), dtype=torch.float32, device=q.device)
            if save_lse else None)
     if BH == 0 or S == 0:
-        return (o, lse) if save_lse else o
+        return o, lse, False
     if Skv == 0:
         raise ValueError("flash_attention_fwd: no keys (Skv = 0)")
     lib = _kernel_lib(FWD)
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        err = lib.rmt_flash_fwd(
+        err = getattr(lib, symbol)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             BH, S, Skv, D, float(scale), int(bool(causal)),
             _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
     _raise_on(err, lib, "flash_attention_fwd")
-    _launches[FWD] += 1
+    return o, lse, True
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True,
+                        scale: Optional[float] = None,
+                        save_lse: bool = False):
+    """Launch the forward kernel on [BH, S, D] / [BH, Skv, D] CUDA tensors.
+
+    Returns ``o`` ([BH, S, D], input dtype), or ``(o, lse)`` with lse
+    [BH, S, 1] fp32 when ``save_lse``. The design follows
+    :func:`fwd_design`; a failed build or launch of either raises. Raises
+    on anything the kernel does not take: a non-CUDA tensor, a dtype other
+    than fp32/bf16, mixed dtypes or devices, a non-contiguous tensor, or
+    D > 128."""
+    o, lse, launched = _launch_fwd("rmt_flash_fwd", q, k, v, causal, scale,
+                                   save_lse)
+    if launched:
+        _launches[FWD] += 1
+        _fwd_designs[fwd_design(q.dtype, q.shape[-1])] += 1
+    return (o, lse) if save_lse else o
+
+
+def flash_attention_fwd_simt(q, k, v, causal: bool = True,
+                             scale: Optional[float] = None,
+                             save_lse: bool = False):
+    """The forward's SIMT design whatever the dtype and head dim, to time
+    it beside the wgmma design on the same inputs. No path of the port
+    calls it, and its launches are not counted."""
+    o, lse, _ = _launch_fwd("rmt_flash_fwd_simt", q, k, v, causal, scale,
+                            save_lse)
     return (o, lse) if save_lse else o
 
 

@@ -24,14 +24,17 @@ import time
 import numpy as np
 import torch
 
-from ..ops.flash_attention import launch_counts, reset_launch_count
+from ..ops.flash_attention import (fwd_design_counts, launch_counts,
+                                   reset_launch_count)
 from ..serve.llm import LLMServer
 from . import gpu_bench
 
 PROMPT_LENS = (5, 40, 64, 100, 250, 513, 800, 991, 1000)
 TRAIN_STEPS = 4  # training steps per window, traced and untraced
-# device kernel name -> the port's launch counter
-PORT_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
+# device kernel name (the __global__ function's) -> the port's launch
+# counter: a kernel's, or the forward's by design
+PORT_KERNELS = {"flash_fwd_wgmma_kernel": "wgmma",
+                "flash_fwd_kernel": "simt",
                 "flash_bwd_dq_kernel": "flash_attention_dq",
                 "flash_bwd_dkv_kernel": "flash_attention_dkv"}
 
@@ -57,11 +60,24 @@ def _burst(srv: LLMServer, prompts) -> float:
     return wall
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
+    """A profiler row's own device time in µs."""
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def kernel_rows(prof):
+    """The device rows of a trace's ``key_averages()``: kernels, copies
+    and sets. Operator rows carry their kernels' time as well, and a user
+    annotation's device row (the optimizer's step) spans kernels that have
+    rows of their own, so neither is one."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def _serve(args, profile, activities):
@@ -117,20 +133,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: no CUDA device")
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run = _serve if args.mode == "serve" else _train
     prof, wall_plain, wall_traced = run(
         args, profile, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    launches = launch_counts()
-    # kernel rows only: operator rows carry their kernels' time as well,
-    # and a user annotation's device row (the optimizer's step) spans
-    # kernels that have rows of their own
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-              and not getattr(e, "is_user_annotation", False)]
-    busy_us = sum(_device_us(e) for e in events)
+    launches = {**launch_counts(), **fwd_design_counts()}
+    events = kernel_rows(prof)
+    busy_us = sum(device_us(e) for e in events)
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"wall untraced {wall_plain * 1e3:.1f} ms, traced "
           f"{wall_traced * 1e3:.1f} ms")
@@ -138,12 +148,12 @@ def main(argv=None) -> int:
           f"{100 * busy_us / 1e6 / wall_traced:.1f}% of traced wall "
           f"(idle {100 - 100 * busy_us / 1e6 / wall_traced:.1f}%)")
     for kernel, counter in PORT_KERNELS.items():
-        us = sum(_device_us(e) for e in events if kernel in e.key)
+        us = sum(device_us(e) for e in events if kernel in e.key)
         print(f"{kernel} {us / 1e3:.2f} ms over {launches[counter]} "
               f"launches = {100 * us / max(busy_us, 1e-9):.2f}% of busy")
     print(f"top {args.top} kernels by device time:")
-    for e in sorted(events, key=_device_us, reverse=True)[:args.top]:
-        print(f"  {_device_us(e) / 1e3:9.2f} ms  {e.count:7d} calls  "
+    for e in sorted(events, key=device_us, reverse=True)[:args.top]:
+        print(f"  {device_us(e) / 1e3:9.2f} ms  {e.count:7d} calls  "
               f"{e.key[:90]}")
     return 0
 

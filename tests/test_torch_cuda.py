@@ -8,7 +8,9 @@ Tolerances: the kernels compute in fp32 and round only their outputs, so
 they are held to the plain versions evaluated in fp32 on the same values,
 at 1e-4 for fp32 inputs (sums of up to ~1k terms taken in another order)
 and 1e-2 (atol and rtol) for bf16 outputs (one bf16 rounding, 2^-8
-relative).
+relative). The bf16 forward with a head dim of 64 or 128 (the wgmma
+design) also rounds p to bf16 before P V; tests/test_torch_flash_tiled.py
+shows on the CPU that this fits the same 1e-2.
 """
 
 import dataclasses
@@ -22,9 +24,14 @@ from ray_memory_management_tpu_torch.ops.flash_attention import (
     DKV,
     DQ,
     FWD,
+    SIMT,
+    WGMMA,
     flash_attention,
     flash_attention_bwd,
     flash_attention_fwd,
+    flash_attention_fwd_simt,
+    fwd_design,
+    fwd_design_counts,
     launch_count,
     launch_counts,
     reference_attention,
@@ -54,17 +61,26 @@ def _qkv(bh, s, skv, d, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("s,skv,d,causal", [
-    (64, 64, 64, True), (200, 200, 64, True), (200, 200, 64, False),
-    (64, 200, 64, True), (67, 67, 16, True), (130, 131, 32, False),
-    (96, 160, 128, True), (1, 77, 64, True)])
-def test_kernel_matches_plain(cuda, dtype, s, skv, d, causal):
-    q, k, v = _qkv(3, s, skv, d, dtype, cuda)
+@pytest.mark.parametrize("s,skv,d,causal,bh", [
+    (64, 64, 64, True, 3), (200, 200, 64, True, 3), (200, 200, 64, False, 3),
+    (64, 200, 64, True, 3), (67, 67, 16, True, 3), (130, 131, 32, False, 3),
+    (96, 160, 128, True, 3), (1, 77, 64, True, 3),
+    # edges of the wgmma design (bf16, D = 64 or 128): S off the 64-row
+    # tile, S < Skv and S > Skv, one query row, D = 128 off the tile, and
+    # more CTAs than the card holds at once (2 per SM on 132 SMs)
+    (67, 67, 64, True, 3), (1000, 1000, 64, True, 3),
+    (1000, 1000, 128, False, 3), (67, 200, 128, True, 3),
+    (200, 64, 64, False, 3), (131, 67, 128, False, 3),
+    (1, 1, 64, True, 3), (1, 300, 128, False, 3),
+    (256, 256, 64, True, 300)])
+def test_kernel_matches_plain(cuda, dtype, s, skv, d, causal, bh):
+    q, k, v = _qkv(bh, s, skv, d, dtype, cuda)
     reset_launch_count()
     out, lse = flash_attention_fwd(q, k, v, causal=causal, save_lse=True)
     torch.cuda.synchronize()
     assert launch_count() == 1
-    assert out.dtype == dtype and lse.shape == (3, s, 1)
+    assert fwd_design_counts()[fwd_design(dtype, d)] == 1
+    assert out.dtype == dtype and lse.shape == (bh, s, 1)
     ref = reference_attention(q.float(), k.float(), v.float(), causal)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
@@ -75,6 +91,25 @@ def test_kernel_matches_plain(cuda, dtype, s, skv, d, causal):
         scores = scores.masked_fill(~keep, float("-inf"))
     torch.testing.assert_close(lse[..., 0], torch.logsumexp(scores, -1),
                                atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,d,design", [
+    (torch.bfloat16, 64, WGMMA), (torch.bfloat16, 128, WGMMA),
+    (torch.float32, 64, SIMT), (torch.bfloat16, 32, SIMT)],
+    ids=["bf16-d64", "bf16-d128", "fp32-d64", "bf16-d32"])
+def test_forward_design_by_dtype_and_head_dim(cuda, dtype, d, design):
+    # the count says which design the wrapper expects; the outputs show
+    # which one the library ran: the SIMT design gives the same bits as
+    # its own symbol, the wgmma design (p rounded to bf16) does not
+    q, k, v = _qkv(2, 130, 130, d, dtype, cuda, seed=5)
+    reset_launch_count()
+    out = flash_attention_fwd(q, k, v, causal=True)
+    simt = flash_attention_fwd_simt(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    other = SIMT if design == WGMMA else WGMMA
+    assert fwd_design_counts() == {design: 1, other: 0}
+    assert launch_count() == 1  # the SIMT symbol is not counted
+    assert torch.equal(out, simt) == (design == SIMT)
 
 
 def test_four_dim_route_and_count(cuda):
