@@ -19,7 +19,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 (bf16 with D = 64 or 128: wgmma; fp32: SIMT); then the
                 backward kernels (dq, dk/dv) against
                 ``reference_flash_bwd`` at the training shape in bf16 and
-                fp32, non-causal, S != Skv and odd lengths. Each kernel's
+                fp32, non-causal, S != Skv, odd lengths, a ragged S =
+                1000 and one query row, each case checked for the design
+                it took (the forward's rule). Each kernel's
                 device time (``device_ms``: the kernels of a
                 ``torch.profiler`` trace) is printed beside its plain
                 version's, a PyTorch yardstick the port never calls (SDPA
@@ -28,11 +30,13 @@ Phases, each of which must pass (any failure exits non-zero):
                 CUDA-event figures, which take in host time, stand beside
                 them under ``*_event_ms``. At the serving main case and the
                 training shape the forward's previous (SIMT) design is
-                timed in turns with the wgmma one (prev, new, new, prev).
+                timed in turns with the wgmma one (prev, new, new, prev),
+                and so are the backward kernels' at the training shape.
   3. forward  — ``gpt.forward`` of gpt2-small at B = 8, S = 1024 with the
                 kernel against ``attention="ref"``.
   4. grad     — gradients of ``gpt.loss_fn`` for gpt2-small at B = 8,
-                S = 1024 with the kernels against ``attention="ref"``.
+                S = 1024 with the kernels against ``attention="ref"``;
+                every kernel launch of the bf16 gradient must be wgmma.
   5. serve    — a main path: ``LLMServer`` (gpt2-small, paged
                 continuous batching) answers a burst of concurrent
                 requests; kernel launch counts are zeroed just before and
@@ -42,8 +46,8 @@ Phases, each of which must pass (any failure exits non-zero):
   6. train    — the other main path: ``train_step_mfu`` takes 8 AdamW
                 steps of gpt2-small at B = 8, S = 1024 with the launch
                 counts zeroed just before and read just after; every
-                kernel must launch once per layer per step, the forward
-                through the wgmma design.
+                kernel must launch once per layer per step, all through
+                the wgmma design.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -190,12 +194,15 @@ def backward_bound(kernel, bh, s, skv, d, causal, dtype_name, itemsize):
 
 
 def bwd_close(got, ref, dtype_name):
-    """(max abs error, ok) under BWD_TOL for one backward output."""
+    """(max abs error, worst error over its limit, ok) under BWD_TOL for
+    one backward output; ok iff that ratio is at most 1."""
     t = BWD_TOL[dtype_name]
     err = (got.float() - ref).abs()
     limit = (t["atol"] + t["atol_of_max"] * ref.abs().max()
              + t["rtol"] * ref.abs())
-    return err.max().item(), bool((err <= limit).all())
+    # 0 / 0 counts as 0: an output that is exactly 0 where the bound is 0
+    ratio = (err / limit).masked_fill(err == 0, 0.0).max().item()
+    return err.max().item(), ratio, bool((err <= limit).all())
 
 
 # ------------------------------------------------------------------ phases
@@ -364,16 +371,21 @@ def phase_kernels(device):
 
 def phase_backward(device):
     """dq and dk/dv kernels against ``reference_flash_bwd`` (in fp32 on the
-    same values, with o and lse from the forward kernel), then, at the
-    main backward case, each kernel timed beside its plain version, its
-    bound and the SDPA backward of the pair."""
+    same values, with o and lse from the forward kernel), each case
+    checked for the design it took; then, at the main backward case, each
+    kernel timed in turns with its SIMT design (prev, new, new, prev),
+    beside its plain version, its bound and the SDPA backward of the
+    pair."""
     import torch
     import torch.nn.functional as F
 
     from ray_memory_management_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd, flash_attention_dkv, flash_attention_dq,
-        flash_attention_fwd, reference_delta, reference_flash_bwd,
-        reference_flash_dkv, reference_flash_dq, reference_lse)
+        DKV, DQ, SIMT, WGMMA, bwd_design, bwd_design_counts,
+        flash_attention_bwd,
+        flash_attention_dkv, flash_attention_dkv_simt, flash_attention_dq,
+        flash_attention_dq_simt, flash_attention_fwd, reference_delta,
+        reference_flash_bwd, reference_flash_dkv, reference_flash_dq,
+        reference_lse, reset_launch_count)
 
     main_case = ("bfloat16", TRAIN_BH, TRAIN_S, TRAIN_S, HEAD_DIM, True)
     cases = [main_case, ("float32",) + main_case[1:]]
@@ -383,6 +395,8 @@ def phase_backward(device):
                   (dtype_name, BH, 992, 1024, HEAD_DIM, True),
                   (dtype_name, BH, 67, 67, HEAD_DIM, True),
                   (dtype_name, BH, 131, 131, HEAD_DIM, False),
+                  (dtype_name, BH, 1000, 1000, HEAD_DIM, True),
+                  (dtype_name, BH, 1, 77, HEAD_DIM, True),
                   (dtype_name, BH, 96, 160, 128, True)]
     gen = torch.Generator(device=device).manual_seed(1)
     rows, main = [], None
@@ -396,17 +410,25 @@ def phase_backward(device):
 
         q, k, v, do = rand(s), rand(skv), rand(skv), rand(s)
         o, lse = flash_attention_fwd(q, k, v, causal=causal, save_lse=True)
+        design = bwd_design(dtype, d)
+        reset_launch_count()
         got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         torch.cuda.synchronize()
+        designs = bwd_design_counts()
+        other = SIMT if design == WGMMA else WGMMA
+        design_ok = all(designs[n] == {design: 1, other: 0}
+                        for n in (DQ, DKV))
         want = reference_flash_bwd(q.float(), k.float(), v.float(),
                                    o.float(), lse, do.float(), causal)
         checks = [bwd_close(g, w, dtype_name) for g, w in zip(got, want)]
         lse_ok = bool(torch.allclose(
             lse, reference_lse(q.float(), k.float(), causal), **LSE_TOL))
-        ok = lse_ok and all(c[1] for c in checks)
+        ok = lse_ok and design_ok and all(c[2] for c in checks)
         errs = {f"d{n}": c[0] for n, c in zip("qkv", checks)}
+        ratios = {f"d{n}_over_limit": c[1] for n, c in zip("qkv", checks)}
         row = dict(dtype=dtype_name, BH=bh, S=s, Skv=skv, D=d,
-                   causal=causal, ok=ok, lse_ok=lse_ok, **errs)
+                   causal=causal, design=design, designs=designs, ok=ok,
+                   lse_ok=lse_ok, **errs, **ratios)
         del want
         if case == main_case:
             delta = reference_delta(o, do)
@@ -417,8 +439,24 @@ def phase_backward(device):
             def dkv():
                 return flash_attention_dkv(q, k, v, do, lse, delta, causal)
 
-            row["dq_ms"] = device_ms(dq)[0]
-            row["dkv_ms"] = device_ms(dkv)[0]
+            def dq_prev():
+                return flash_attention_dq_simt(q, k, v, do, lse, delta,
+                                               causal)
+
+            def dkv_prev():
+                return flash_attention_dkv_simt(q, k, v, do, lse, delta,
+                                                causal)
+
+            # the SIMT design in turns with the wgmma one, per kernel
+            for kernel, new, prev in (("dq", dq, dq_prev),
+                                      ("dkv", dkv, dkv_prev)):
+                timed = {}
+                for name, fn in (("prev", prev), ("new", new),
+                                 ("new", new), ("prev", prev)):
+                    timed.setdefault(name, []).append(device_ms(fn)[0])
+                row[f"{kernel}_ms"] = sum(timed["new"]) / 2
+                row[f"{kernel}_prev_ms"] = sum(timed["prev"]) / 2
+                row[f"{kernel}_turns_ms"] = timed
             row["dq_event_ms"] = cuda_time_ms(dq)
             row["dkv_event_ms"] = cuda_time_ms(dkv)
             row["dq_plain_ms"] = device_ms(lambda: reference_flash_dq(
@@ -447,29 +485,40 @@ def phase_backward(device):
                 row[f"{kernel}_bound_ms"] = bound_ms
                 row[f"{kernel}_bound_by"] = bound_by
                 row[f"{kernel}_bytes"], row[f"{kernel}_ops"] = nbytes, ops
+                # the function's products (3 and 4), not the split's 4, 6
+                for key in ("", "prev_"):
+                    row[f"{kernel}_{key}tflops"] = (
+                        ops / (row[f"{kernel}_{key}ms"] * 1e-3) / 1e12)
             main = row
             del out, leaves
         rows.append(row)
-        timing = (f" dq_ms={row['dq_ms']:.4f} (plain {row['dq_plain_ms']:.4f}"
-                  f", bound {row['dq_bound_ms']:.5f} {row['dq_bound_by']}) "
-                  f"dkv_ms={row['dkv_ms']:.4f} (plain "
-                  f"{row['dkv_plain_ms']:.4f}, bound "
-                  f"{row['dkv_bound_ms']:.5f} {row['dkv_bound_by']}) "
-                  f"sdpa_bwd_pair_ms={row['pair_library_ms']:.4f} "
+        timing = "".join(
+            f" {n}_ms={row[f'{n}_ms']:.4f} ({row[f'{n}_tflops']:.1f} "
+            f"TFLOP/s; turns prev {row[f'{n}_turns_ms']['prev'][0]:.4f} "
+            f"new {row[f'{n}_turns_ms']['new'][0]:.4f} new "
+            f"{row[f'{n}_turns_ms']['new'][1]:.4f} prev "
+            f"{row[f'{n}_turns_ms']['prev'][1]:.4f}; prev_ms "
+            f"{row[f'{n}_prev_ms']:.4f}, plain {row[f'{n}_plain_ms']:.4f}, "
+            f"bound {row[f'{n}_bound_ms']:.5f} {row[f'{n}_bound_by']})"
+            for n in ("dq", "dkv")) if case == main_case else ""
+        timing += (f" sdpa_bwd_pair_ms={row['pair_library_ms']:.4f} "
                   f"(event_ms dq {row['dq_event_ms']:.4f} dkv "
                   f"{row['dkv_event_ms']:.4f} sdpa pair "
                   f"{row['pair_library_event_ms']:.4f}; sdpa kernels: "
                   f"{short_names(row['pair_library_kernels'])})"
                   if case == main_case else "")
         log(f"[kernels] flash_bwd {dtype_name:8s} BH={bh} S={s:4d} "
-            f"Skv={skv:4d} D={d} causal={causal!s:5s} max_abs_err "
+            f"Skv={skv:4d} D={d} causal={causal!s:5s} design={design} "
+            f"max_abs_err "
             + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+            + " err/limit " + " ".join(f"{c[1]:.3f}" for c in checks)
             + f" lse {'ok' if lse_ok else 'FAIL'} "
             f"{'ok' if ok else 'FAIL'}{timing}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"flash_bwd disagrees with its plain version "
-                             f"in {len(bad)} case(s): {bad}")
+                             f"or took another design in {len(bad)} "
+                             f"case(s): {bad}")
     return rows, main
 
 
@@ -539,7 +588,8 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
 
     from ray_memory_management_tpu_torch.models import gpt
     from ray_memory_management_tpu_torch.ops.flash_attention import (
-        fwd_design_counts, launch_counts, reset_launch_count)
+        bwd_design_counts, fwd_design_counts, launch_counts,
+        reset_launch_count)
     from ray_memory_management_tpu_torch.utils import gpu_bench
 
     cfg = dataclasses.replace(gpt.PRESETS[preset], attention="flash")
@@ -560,6 +610,7 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
     loss_k, gk = grads(cfg)
     launches = launch_counts()
     designs = fwd_design_counts()
+    bwd_designs = bwd_design_counts()
     loss_r, gr = grads(dataclasses.replace(cfg, attention="ref"))
     loss_r32, gr32 = grads(dataclasses.replace(f32, attention="ref"))
     loss_k32, gk32 = grads(f32)
@@ -583,21 +634,23 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
         f"(limit 2 x bf16 noise floor {worst['floor']:.3e}); fp32 worst "
         f"leaf {worst32['leaf']} max_abs_err={worst32['err32']:.3e} "
         f"(tol {tol32:g} x max|grad| {worst32['scale32']:.3e}); launches "
-        f"{launches} {designs} (expect {cfg.n_layers} each, forward all "
-        f"wgmma)")
+        f"{launches} forward {designs} backward {bwd_designs} (expect "
+        f"{cfg.n_layers} each, all wgmma)")
     if not finite:
         raise AssertionError("grad: non-finite gradients")
     if not (bf16_ok and fp32_ok):
         raise AssertionError(f"grad: gradients with the kernels disagree "
                              f"with attention='ref': {rows}")
     if (any(n != cfg.n_layers for n in launches.values())
-            or designs["wgmma"] != cfg.n_layers):
-        raise AssertionError(f"grad: launches {launches} {designs}, "
-                             f"expected {cfg.n_layers} of each kernel, "
-                             f"the forward's all wgmma")
+            or designs["wgmma"] != cfg.n_layers
+            or any(c["wgmma"] != cfg.n_layers
+                   for c in bwd_designs.values())):
+        raise AssertionError(f"grad: launches {launches} {designs} "
+                             f"{bwd_designs}, expected {cfg.n_layers} of "
+                             f"each kernel, all wgmma")
     return dict(loss_bf16=loss_k, loss_ref_bf16=loss_r, loss_fp32=loss_k32,
                 loss_ref_fp32=loss_r32, worst_bf16=worst, worst_fp32=worst32,
-                launches=launches, designs=designs)
+                launches=launches, designs=designs, bwd_designs=bwd_designs)
 
 
 def _serve_requests(vocab, seed):
@@ -762,7 +815,8 @@ def phase_train(device, steps=8):
 
     from ray_memory_management_tpu_torch.models import gpt
     from ray_memory_management_tpu_torch.ops.flash_attention import (
-        fwd_design_counts, launch_counts, reset_launch_count)
+        bwd_design_counts, fwd_design_counts, launch_counts,
+        reset_launch_count)
     from ray_memory_management_tpu_torch.utils.gpu_bench import (
         train_step_mfu)
 
@@ -773,6 +827,7 @@ def phase_train(device, steps=8):
                        steps=steps, device=device)
     launches = launch_counts()
     designs = fwd_design_counts()
+    bwd_designs = bwd_design_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     losses = r["losses"]
     log(f"[train] gpt2-small B={TRAIN_B} S={TRAIN_S} on {r['device']}: "
@@ -780,18 +835,21 @@ def phase_train(device, steps=8):
         f"step_ms={r['step_ms']:.2f} tokens_per_s={r['tokens_per_s']:.1f} "
         f"mfu={r['mfu']:.4f} (PaLM accounting, 989 TFLOP/s peak) "
         f"n_params={r['n_params']} peak_mem={peak_gb:.2f} GB; launches "
-        f"{launches} {designs} (need {n_layers * steps} each, the "
-        f"forward's all wgmma)")
+        f"{launches} forward {designs} backward {bwd_designs} (need "
+        f"{n_layers * steps} each, all wgmma)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("train: non-finite loss")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: the loss did not fall: {losses}")
     if (any(n != n_layers * steps for n in launches.values())
-            or designs["wgmma"] != n_layers * steps):
-        raise AssertionError(f"train: launches {launches} {designs}, "
-                             f"expected {n_layers * steps} of each kernel, "
-                             f"the forward's all wgmma")
-    return dict(r, launches=launches, designs=designs, peak_mem_gb=peak_gb)
+            or designs["wgmma"] != n_layers * steps
+            or any(c["wgmma"] != n_layers * steps
+                   for c in bwd_designs.values())):
+        raise AssertionError(f"train: launches {launches} {designs} "
+                             f"{bwd_designs}, expected {n_layers * steps} "
+                             f"of each kernel, all wgmma")
+    return dict(r, launches=launches, designs=designs,
+                bwd_designs=bwd_designs, peak_mem_gb=peak_gb)
 
 
 def main() -> int:
@@ -881,6 +939,13 @@ def main() -> int:
         "bound_by": bwd["dq_bound_by"],
         "library_ms": bwd["pair_library_ms"],
         "library_covers": pair,
+        # the design every bf16 launch of the training path took, and the
+        # previous (SIMT) design's time in the same call
+        "design": bwd["design"],
+        "max_err_over_limit": bwd["dq_over_limit"],
+        "prev_ms": bwd["dq_prev_ms"],
+        "tflops": bwd["dq_tflops"],
+        "prev_tflops": bwd["dq_prev_tflops"],
         "kernel_event_ms": bwd["dq_event_ms"],
         "library_event_ms": bwd["pair_library_event_ms"],
     }, {
@@ -896,6 +961,13 @@ def main() -> int:
         "bound_by": bwd["dkv_bound_by"],
         "library_ms": bwd["pair_library_ms"],
         "library_covers": pair,
+        # the design every bf16 launch of the training path took, and the
+        # previous (SIMT) design's time in the same call
+        "design": bwd["design"],
+        "max_err_over_limit": max(bwd["dk_over_limit"], bwd["dv_over_limit"]),
+        "prev_ms": bwd["dkv_prev_ms"],
+        "tflops": bwd["dkv_tflops"],
+        "prev_tflops": bwd["dkv_prev_tflops"],
         "kernel_event_ms": bwd["dkv_event_ms"],
         "library_event_ms": bwd["pair_library_event_ms"],
     }]}))

@@ -65,9 +65,7 @@
 // tile's softmax does not overlap the next tile's products inside a
 // CTA, only the second CTA on the SM fills those gaps.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper_common.cuh"
 
 #include <math.h>
 #include <stdint.h>
@@ -283,186 +281,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 constexpr int kWgThreads = 256;     // warpgroup 0 loads, warpgroup 1 computes
 constexpr int kStages = 2;          // K/V ring depth
-constexpr int kSlabCols = 64;       // bf16 columns in one 128-byte row
-constexpr int kSlabBytes = 64 * 128;  // one [64 rows][64 cols] bf16 slab
 // setmaxnreg: 40 + 216 = 2 x 128, the entry count of a 2-CTA/SM launch.
 // ptxas still compiles the consumer within 128 registers (the launch
 // bound), which it fits without spills; the split pays once a consumer
 // needs more, as with one CTA per SM.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 216;
-constexpr float kLog2e = 1.4426950408889634f;
-// a wait that has not completed after this many polls is a hang: trap
-// instead, so a fault in the pipeline surfaces as a launch error
-constexpr uint32_t kMaxPolls = 1u << 24;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity), "r"(1000u)  // suspend hint, ns
-        : "memory");
-    if (done) return;
-    if (n == kMaxPolls) __trap();
-  }
-}
-
-// one [64 rows][64 cols] box of a [BH, rows, D] tensor into 128B-swizzled
-// shared memory; rows past the head's end arrive as zeros
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int col, int row,
-                                            int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-      "r"(bh)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of an accumulator across
-// the asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A and B from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
-                                                   uint64_t da, uint64_t db,
-                                                   int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// A from registers; B (V) is MN-major: the transpose bit is set
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// A from registers; B (V) is MN-major: the transpose bit is set
-__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, "
-      "%66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_pv(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  wgmma_rs_m64n64k16(d, a, db);
-}
-__device__ __forceinline__ void wgmma_pv(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  wgmma_rs_m64n128k16(d, a, db);
-}
 
 template <int D>
 struct WgLayout {
@@ -477,18 +301,6 @@ struct WgLayout {
   // the tiles must start on 1024 bytes for the 128B swizzle
   static constexpr int kSmem = kBytes + 1024;
 };
-
-// Key tiles a CTA of 64 query rows from q0 visits: all of them, or under
-// `causal` those that are not wholly above the diagonal (may be 0).
-__device__ __forceinline__ int key_tiles(int q0, int Skv, int off,
-                                         int causal) {
-  int n = (Skv + kBlockK - 1) / kBlockK;
-  if (causal) {
-    const int last = q0 + kBlockQ - 1 + off;  // last visible column
-    n = last < 0 ? 0 : min(n, last / kBlockK + 1);
-  }
-  return n;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 2)
@@ -529,21 +341,17 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (tid != 0 || n_k == 0) return;
     mbar_expect_tx(bar_q, L::kTileBytes);
-    for (int c = 0; c < L::kSlabs; ++c)
-      tma_load_3d(base + L::kQ + c * kSlabBytes, &tq, bar_q, c * kSlabCols,
-                  q0, bh);
+    tma_load_tile<D>(base + L::kQ, &tq, bar_q, q0, bh);
     for (int t = 0; t < n_k; ++t) {
       const int st = t % kStages;
       if (t >= kStages) mbar_wait(bar_empty + 8 * st, ((t / kStages) & 1) ^ 1);
       const int k0 = t * kBlockK;
       mbar_expect_tx(bar_k + 8 * st, L::kTileBytes);
-      for (int c = 0; c < L::kSlabs; ++c)
-        tma_load_3d(base + L::kK + st * L::kTileBytes + c * kSlabBytes, &tk,
-                    bar_k + 8 * st, c * kSlabCols, k0, bh);
+      tma_load_tile<D>(base + L::kK + st * L::kTileBytes, &tk, bar_k + 8 * st,
+                       k0, bh);
       mbar_expect_tx(bar_v + 8 * st, L::kTileBytes);
-      for (int c = 0; c < L::kSlabs; ++c)
-        tma_load_3d(base + L::kV + st * L::kTileBytes + c * kSlabBytes, &tv,
-                    bar_v + 8 * st, c * kSlabCols, k0, bh);
+      tma_load_tile<D>(base + L::kV + st * L::kTileBytes, &tv, bar_v + 8 * st,
+                       k0, bh);
     }
     return;
   }
@@ -578,11 +386,9 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     mbar_wait(bar_k + 8 * st, parity);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t step = (kk / 4) * kSlabBytes + (kk % 4) * 32;
-      wgmma_ss_m64n64k16(s, gmma_desc(base + L::kQ + step, 16, 1024),
-                         gmma_desc(k_tile + step, 16, 1024), kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(s, desc_k_major(base + L::kQ, kk),
+                         desc_k_major(k_tile, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -658,7 +464,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv(acc, pa[kk], gmma_desc(v_tile + kk * 2048, kSlabBytes, 1024));
+      wgmma_rs(acc, pa[kk], desc_mn_major(v_tile, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -691,52 +497,6 @@ __global__ void __launch_bounds__(kWgThreads, 2)
 
 // ---------------------------------------------------------------------------
 // Host side of the wgmma design.
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no libcuda link)
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// a 3-D [bh, rows, d] bf16 map read in [1, 64, 64] boxes, 128B swizzle
-cudaError_t encode_map(CUtensorMap* map, const void* ptr, int bh, int rows,
-                       int d) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(rows) * d * 2};
-  const cuuint32_t box[3] = {kSlabCols, kBlockK, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-         dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,

@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds). The library lands in ``_build/`` beside the package (a
-directory git ignores), named by a digest of the source and the flags,
-so an edited source rebuilds and an unchanged one is reused. Builds run
-at first use, never at import: the CPU tests import every module of the
-port on machines without ``nvcc``.
+directory git ignores), named by a digest of the source, the headers it
+includes and the flags, so an edited source or header rebuilds and an
+unchanged one is reused. Builds run at first use, never at import: the
+CPU tests import every module of the port on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -48,8 +48,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """Where the library of ``csrc/<name>.cu`` lands: named by a digest of
+    the source, every header of ``csrc/`` (the sources include them by
+    quoted name) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -11,13 +11,17 @@ where the tensors lie: a CUDA tensor launches the kernels (or raises;
 there is no fallback), a CPU tensor takes the plain versions through the
 same autograd glue.
 
-The forward has two designs, picked by :func:`fwd_design`. bf16 with a
-head dim of 64 or 128 (both main paths) takes the ``wgmma`` kernel: its
-products run on the tensor cores from TMA-fed bf16 tiles, because the
-SIMT kernel's fp32 FMAs were what bounded the forward on the H100 (37x
-above its bound at the training shape). fp32, the parity route held to
-1e-4, and any other head dim take the ``simt`` kernel, fp32 FMAs on the
-CUDA cores.
+Each kernel has two designs, picked by :func:`fwd_design` and
+:func:`bwd_design` by one rule. bf16 with a head dim of 64 or 128 (both
+main paths) takes the ``wgmma`` kernels: their products run on the tensor
+cores from TMA-fed bf16 tiles, because the SIMT kernels' fp32 FMAs were
+what bounded them on the H100 (37-42x above their bounds at the training
+shape). The backward's ``wgmma`` kernels split p and ds into two bf16
+halves (hi = bf16(x), lo = bf16(x - hi)) and run each product that takes
+them once per half: one bf16 rounding of p and ds breaks the backward's
+bf16 tolerance (tests/test_torch_flash_bwd_tiled.py). fp32, the parity
+route held to 1e-4, and any other head dim take the ``simt`` kernels,
+fp32 FMAs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -35,13 +39,15 @@ DQ = "flash_attention_dq"
 DKV = "flash_attention_dkv"
 MAX_HEAD_DIM = 128
 
-WGMMA, SIMT = "wgmma", "simt"  # the forward kernel's two designs
+WGMMA, SIMT = "wgmma", "simt"  # every kernel's two designs
 WGMMA_HEAD_DIMS = (64, 128)
 
-# kernel launches since the last reset_launch_count(), by kernel, and the
-# forward's by design
+# kernel launches since the last reset_launch_count(), by kernel, and by
+# design
 _launches: Dict[str, int] = {FWD: 0, DQ: 0, DKV: 0}
 _fwd_designs: Dict[str, int] = {WGMMA: 0, SIMT: 0}
+_bwd_designs: Dict[str, Dict[str, int]] = {DQ: {WGMMA: 0, SIMT: 0},
+                                           DKV: {WGMMA: 0, SIMT: 0}}
 
 
 def launch_count() -> int:
@@ -62,8 +68,15 @@ def fwd_design_counts() -> Dict[str, int]:
     return dict(_fwd_designs)
 
 
+def bwd_design_counts() -> Dict[str, Dict[str, int]]:
+    """Backward launches since the last :func:`reset_launch_count`, by
+    kernel and the design that ran: ``{DQ: {"wgmma": n, "simt": n},
+    DKV: {...}}``."""
+    return {kernel: dict(counts) for kernel, counts in _bwd_designs.items()}
+
+
 def reset_launch_count() -> None:
-    for counts in (_launches, _fwd_designs):
+    for counts in (_launches, _fwd_designs, *_bwd_designs.values()):
         for name in counts:
             counts[name] = 0
 
@@ -74,6 +87,12 @@ def fwd_design(dtype: torch.dtype, head_dim: int) -> str:
     of 64 or 128, ``simt`` otherwise."""
     return (WGMMA if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
             else SIMT)
+
+
+def bwd_design(dtype: torch.dtype, head_dim: int) -> str:
+    """The design ``rmt_flash_bwd_dq`` and ``rmt_flash_bwd_dkv`` launch for
+    these inputs, by the forward's rule (the C functions apply it too)."""
+    return fwd_design(dtype, head_dim)
 
 
 def _scores(q, k, causal: bool, scale: float):
@@ -153,8 +172,9 @@ _SIGNATURES = {
     FWD: {"rmt_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
           "rmt_flash_fwd_simt": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P]},
     "flash_attention_bwd": {
-        "rmt_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P],
-        "rmt_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P],
+        f"{symbol}{suffix}": [_P] * n + [_I] * 4 + [_F, _I, _I, _P]
+        for symbol, n in (("rmt_flash_bwd_dq", 7), ("rmt_flash_bwd_dkv", 8))
+        for suffix in ("", "_simt")
     },
 }
 
@@ -281,9 +301,11 @@ def _check_stats(fn: str, BH: int, S: int, device, **stats) -> None:
 
 
 def _launch_bwd(kernel: str, q, k, v, do, lse, delta, causal: bool,
-                scale: Optional[float]):
-    """Check the inputs of one backward kernel, launch it, and return its
-    outputs: ``(dq,)`` for :data:`DQ`, ``(dk, dv)`` for :data:`DKV`."""
+                scale: Optional[float], simt: bool = False):
+    """Check the inputs of one backward kernel, launch it (its SIMT design
+    whatever the inputs if ``simt``; such launches are not counted), and
+    return its outputs: ``(dq,)`` for :data:`DQ`, ``(dk, dv)`` for
+    :data:`DKV`."""
     BH, S, Skv, D = _check(kernel, (("q", q), ("k", k), ("v", v),
                                     ("do", do)), q, k)
     _check_stats(kernel, BH, S, q.device, lse=lse, delta=delta)
@@ -293,14 +315,17 @@ def _launch_bwd(kernel: str, q, k, v, do, lse, delta, causal: bool,
     if BH == 0 or S == 0 or Skv == 0:
         return tuple(t.zero_() for t in outs)
     lib = _kernel_lib("flash_attention_bwd")
+    symbol = _BWD_SYMBOL[kernel] + ("_simt" if simt else "")
     with torch.cuda.device(q.device):
-        err = getattr(lib, _BWD_SYMBOL[kernel])(
+        err = getattr(lib, symbol)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             BH, S, Skv, D, float(scale), int(bool(causal)),
             _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
     _raise_on(err, lib, kernel)
-    _launches[kernel] += 1
+    if not simt:
+        _launches[kernel] += 1
+        _bwd_designs[kernel][bwd_design(q.dtype, D)] += 1
     return outs
 
 
@@ -316,6 +341,22 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = True,
     """Launch the dk/dv kernel: ``(dk, dv)`` [BH, Skv, D] in the input
     dtype, from the same inputs as :func:`flash_attention_dq`."""
     return _launch_bwd(DKV, q, k, v, do, lse, delta, causal, scale)
+
+
+def flash_attention_dq_simt(q, k, v, do, lse, delta, causal: bool = True,
+                            scale: Optional[float] = None):
+    """The dq kernel's SIMT design whatever the dtype and head dim, to time
+    it beside the wgmma design on the same inputs. No path of the port
+    calls it, and its launches are not counted."""
+    return _launch_bwd(DQ, q, k, v, do, lse, delta, causal, scale,
+                       simt=True)[0]
+
+
+def flash_attention_dkv_simt(q, k, v, do, lse, delta, causal: bool = True,
+                             scale: Optional[float] = None):
+    """The dk/dv kernel's SIMT design, as :func:`flash_attention_dq_simt`."""
+    return _launch_bwd(DKV, q, k, v, do, lse, delta, causal, scale,
+                       simt=True)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,

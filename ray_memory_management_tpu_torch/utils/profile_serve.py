@@ -24,19 +24,22 @@ import time
 import numpy as np
 import torch
 
-from ..ops.flash_attention import (fwd_design_counts, launch_counts,
+from ..ops.flash_attention import (DKV, DQ, FWD, SIMT, WGMMA,
+                                   bwd_design_counts, fwd_design_counts,
                                    reset_launch_count)
 from ..serve.llm import LLMServer
 from . import gpu_bench
 
 PROMPT_LENS = (5, 40, 64, 100, 250, 513, 800, 991, 1000)
 TRAIN_STEPS = 4  # training steps per window, traced and untraced
-# device kernel name (the __global__ function's) -> the port's launch
-# counter: a kernel's, or the forward's by design
-PORT_KERNELS = {"flash_fwd_wgmma_kernel": "wgmma",
-                "flash_fwd_kernel": "simt",
-                "flash_bwd_dq_kernel": "flash_attention_dq",
-                "flash_bwd_dkv_kernel": "flash_attention_dkv"}
+# device kernel name (the __global__ function's) -> the port's kernel and
+# the design whose launch counter it is; no name is part of another
+PORT_KERNELS = {"flash_fwd_wgmma_kernel": (FWD, WGMMA),
+                "flash_fwd_kernel": (FWD, SIMT),
+                "flash_bwd_dq_wgmma_kernel": (DQ, WGMMA),
+                "flash_bwd_dq_kernel": (DQ, SIMT),
+                "flash_bwd_dkv_wgmma_kernel": (DKV, WGMMA),
+                "flash_bwd_dkv_kernel": (DKV, SIMT)}
 
 
 def _burst(srv: LLMServer, prompts) -> float:
@@ -138,7 +141,7 @@ def main(argv=None) -> int:
     run = _serve if args.mode == "serve" else _train
     prof, wall_plain, wall_traced = run(
         args, profile, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    launches = {**launch_counts(), **fwd_design_counts()}
+    launches = {FWD: fwd_design_counts(), **bwd_design_counts()}
     events = kernel_rows(prof)
     busy_us = sum(device_us(e) for e in events)
     print(f"card: {torch.cuda.get_device_name(0)}")
@@ -147,10 +150,11 @@ def main(argv=None) -> int:
     print(f"device busy {busy_us / 1e3:.1f} ms = "
           f"{100 * busy_us / 1e6 / wall_traced:.1f}% of traced wall "
           f"(idle {100 - 100 * busy_us / 1e6 / wall_traced:.1f}%)")
-    for kernel, counter in PORT_KERNELS.items():
+    for kernel, (port_kernel, design) in PORT_KERNELS.items():
         us = sum(device_us(e) for e in events if kernel in e.key)
-        print(f"{kernel} {us / 1e3:.2f} ms over {launches[counter]} "
-              f"launches = {100 * us / max(busy_us, 1e-9):.2f}% of busy")
+        print(f"{kernel} {us / 1e3:.2f} ms over "
+              f"{launches[port_kernel][design]} launches = "
+              f"{100 * us / max(busy_us, 1e-9):.2f}% of busy")
     print(f"top {args.top} kernels by device time:")
     for e in sorted(events, key=device_us, reverse=True)[:args.top]:
         print(f"  {device_us(e) / 1e3:9.2f} ms  {e.count:7d} calls  "

@@ -10,7 +10,10 @@ at 1e-4 for fp32 inputs (sums of up to ~1k terms taken in another order)
 and 1e-2 (atol and rtol) for bf16 outputs (one bf16 rounding, 2^-8
 relative). The bf16 forward with a head dim of 64 or 128 (the wgmma
 design) also rounds p to bf16 before P V; tests/test_torch_flash_tiled.py
-shows on the CPU that this fits the same 1e-2.
+shows on the CPU that this fits the same 1e-2. The bf16 backward's wgmma
+design splits p and ds into bf16 hi + lo halves; its outputs are also held
+to chip_smoke.py's bf16 backward bound, 2^-8 |ref| + 1e-3 max|ref|, which
+tests/test_torch_flash_bwd_tiled.py shows on the CPU that the split keeps.
 """
 
 import dataclasses
@@ -26,8 +29,14 @@ from ray_memory_management_tpu_torch.ops.flash_attention import (
     FWD,
     SIMT,
     WGMMA,
+    bwd_design,
+    bwd_design_counts,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_dkv,
+    flash_attention_dkv_simt,
+    flash_attention_dq,
+    flash_attention_dq_simt,
     flash_attention_fwd,
     flash_attention_fwd_simt,
     fwd_design,
@@ -35,6 +44,7 @@ from ray_memory_management_tpu_torch.ops.flash_attention import (
     launch_count,
     launch_counts,
     reference_attention,
+    reference_delta,
     reference_flash_bwd,
     reset_launch_count,
 )
@@ -42,6 +52,7 @@ from ray_memory_management_tpu_torch.serve.llm import LLMServer
 from ray_memory_management_tpu_torch.utils import gpu_bench
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BWD_RTOL, BWD_ATOL_OF_MAX = 2.0 ** -8, 1e-3  # chip_smoke.py BWD_TOL, bf16
 
 
 @pytest.fixture
@@ -148,12 +159,56 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert flash_attention(q.requires_grad_(), k, v).grad_fn is not None
 
 
+@pytest.mark.parametrize("dtype,d,design", [
+    (torch.bfloat16, 64, WGMMA), (torch.bfloat16, 128, WGMMA),
+    (torch.float32, 64, SIMT), (torch.bfloat16, 32, SIMT)],
+    ids=["bf16-d64", "bf16-d128", "fp32-d64", "bf16-d32"])
+def test_backward_design_by_dtype_and_head_dim(cuda, dtype, d, design):
+    # as for the forward: the counts say which design the wrappers expect;
+    # the outputs show which one the library ran (the SIMT design gives
+    # the same bits as its own symbols, the wgmma design does not)
+    q, k, v = _qkv(2, 130, 130, d, dtype, cuda, seed=6)
+    do = _qkv(2, 130, 130, d, dtype, cuda, seed=7)[0]
+    o, lse = flash_attention_fwd(q, k, v, causal=True, save_lse=True)
+    delta = reference_delta(o, do)
+    reset_launch_count()
+    got = (flash_attention_dq(q, k, v, do, lse, delta),
+           *flash_attention_dkv(q, k, v, do, lse, delta))
+    simt = (flash_attention_dq_simt(q, k, v, do, lse, delta),
+            *flash_attention_dkv_simt(q, k, v, do, lse, delta))
+    torch.cuda.synchronize()
+    assert bwd_design(dtype, d) == design
+    other = SIMT if design == WGMMA else WGMMA
+    assert bwd_design_counts() == dict.fromkeys((DQ, DKV),
+                                                {design: 1, other: 0})
+    assert launch_counts() == {FWD: 0, DQ: 1, DKV: 1}  # _simt: not counted
+    for name, g, t in zip(("dq", "dk", "dv"), got, simt):
+        assert torch.equal(g, t) == (design == SIMT), name
+
+
+def _within_bwd_bound(got, ref):
+    """chip_smoke.py's bf16 backward check: |got - ref| <= 2^-8 |ref| +
+    1e-3 max|ref| everywhere. A reference that is exactly 0 everywhere
+    (one query row and one key: ds = p (dp - delta) cancels exactly) gives
+    that bound no scale, only the order of two fp32 sums; the 1e-2 check
+    holds such an output."""
+    if not ref.abs().max():
+        return True
+    limit = BWD_RTOL * ref.abs() + BWD_ATOL_OF_MAX * ref.abs().max()
+    return bool(((got.float() - ref).abs() <= limit).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("s,skv,d,causal", [
     (64, 64, 64, True), (200, 200, 64, True), (200, 200, 64, False),
     (64, 200, 64, True), (67, 67, 16, True), (130, 131, 32, False),
-    (96, 160, 128, True), (1, 77, 64, True)])
+    (96, 160, 128, True), (1, 77, 64, True),
+    # edges of the wgmma design (bf16, D = 64 or 128): a ragged last tile
+    # of 40 rows, one query row and one key, S > Skv, one query row
+    # against 300 keys at D = 128
+    (1000, 1000, 64, True), (1, 1, 64, True), (200, 64, 64, False),
+    (1, 300, 128, False)])
 def test_backward_kernels_match_plain(cuda, dtype, s, skv, d, causal):
     q, k, v = _qkv(3, s, skv, d, dtype, cuda, seed=2)
     do = _qkv(3, s, s, d, dtype, cuda, seed=3)[0]
@@ -162,6 +217,8 @@ def test_backward_kernels_match_plain(cuda, dtype, s, skv, d, causal):
     got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
     assert launch_counts() == {FWD: 0, DQ: 1, DKV: 1}
+    design = bwd_design(dtype, d)
+    assert all(c[design] == 1 for c in bwd_design_counts().values())
     want = reference_flash_bwd(q.float(), k.float(), v.float(), o.float(),
                                lse, do.float(), causal)
     tol = TOL[dtype]
@@ -169,6 +226,8 @@ def test_backward_kernels_match_plain(cuda, dtype, s, skv, d, causal):
         assert g.dtype == dtype and g.shape == w.shape, name
         torch.testing.assert_close(g.float(), w, atol=tol, rtol=tol,
                                    msg=lambda m: f"d{name}: {m}")
+        if design == WGMMA:
+            assert _within_bwd_bound(g, w), f"d{name}"
 
 
 def test_autograd_on_the_card_matches_the_plain_route(cuda):
