@@ -69,6 +69,27 @@ Phases, each of which must pass (any failure exits non-zero):
                 equal an in-process ``LLMServer``'s; after
                 ``rmt.shutdown()`` no shm segment of this driver and no
                 worker or zygote of the port is left.
+  8. serve plane — the main path behind the serve API: in-process
+                ``LLMServer``s of seed 0 (drawn, and from a bf16
+                ``pack_weights`` payload of the same params) give the
+                reference tokens and the cold starts; then ``rmt.init``
+                with a 4 GiB shm store, ``serve.start`` and the HTTP
+                proxy, and ``serve.run`` of ``llm_deployment("gpt2-small",
+                ray_actor_options={"num_gpus": 1}, ship_weights="bf16")``
+                with ``utils/runtime_smoke.ServedLLM`` in place of
+                ``LLMServer`` (the same arguments and payload, plus reads
+                of the replica's process). Held: one live replica on the
+                driver's card by UUID; the payload equal to the
+                in-process one; ``phase_serve``'s burst through
+                ``handle.remote`` complete, KV pages at 0, the replica's
+                forward launches (counts zeroed just before) >= 12 per
+                request and all wgmma; greedy tokens of three prompts
+                through the handle and through HTTP equal the in-process
+                shipped server's; redeploying the same application keeps
+                the replica (same pid, no second cold start); a
+                deployment without ``ship_weights`` gives the in-process
+                seed-0 server's tokens; nothing left behind after
+                ``serve.shutdown()`` and ``rmt.shutdown()``.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -1179,6 +1200,19 @@ def _port_processes():
     return pids
 
 
+def _leftovers(wait_s=20.0):
+    """(shm segments of this driver, live worker/zygote processes of the
+    port), waiting up to ``wait_s`` for a shutdown to clear them."""
+    prefix = f"rmt_{os.getpid()}_"
+    deadline = time.monotonic() + wait_s
+    while True:
+        segs = [n for n in os.listdir("/dev/shm") if n.startswith(prefix)]
+        procs = _port_processes()
+        if not (segs or procs) or time.monotonic() > deadline:
+            return segs, procs
+        time.sleep(0.2)
+
+
 def phase_runtime(device, serve, card, tier_n=16 << 20):
     """The runtime core on the card (see the module docstring, phase 7)."""
     import torch
@@ -1203,14 +1237,7 @@ def phase_runtime(device, serve, card, tier_n=16 << 20):
         actor = _runtime_actor(device, serve)
     finally:
         rmt.shutdown()
-    prefix = f"rmt_{os.getpid()}_"
-    deadline = time.monotonic() + 20
-    while True:
-        segs = [n for n in os.listdir("/dev/shm") if n.startswith(prefix)]
-        procs = _port_processes()
-        if not (segs or procs) or time.monotonic() > deadline:
-            break
-        time.sleep(0.2)
+    segs, procs = _leftovers()
     log(f"[runtime] after rmt.shutdown(): shm segments {segs}, port "
         f"worker/zygote processes {procs}")
     if segs or procs:
@@ -1230,6 +1257,326 @@ def phase_runtime(device, serve, card, tier_n=16 << 20):
     log(figures)
     return dict(init_s=init_s, gpus=gpus, host=host, task=task,
                 actor=actor, figures=figures)
+
+
+SERVE_PLANE_STORE = 4 << 30  # shm for the payload's hops (324 MB each)
+
+
+def _served(app):
+    """``app`` (an ``llm_deployment``) with ``ServedLLM`` in place of
+    ``LLMServer``: the same name, options, arguments and payload, plus
+    reads of the replica's own process (launches, card, pid, cold
+    starts) through a handle method."""
+    from ray_memory_management_tpu_torch import serve as rserve
+    from ray_memory_management_tpu_torch.utils.runtime_smoke import (
+        ServedLLM)
+
+    d = app.deployment
+    return rserve.deployment(
+        ServedLLM, name=d.name, ray_actor_options=d.ray_actor_options,
+        max_concurrent_queries=d.max_concurrent_queries,
+        placement_hint=d.placement_hint).bind(*app.args, **app.kwargs)
+
+
+def _same_payload(a, b) -> bool:
+    import numpy as np
+
+    return (a["p"] == b["p"] and a["paths"] == b["paths"]
+            and all(x["p"] == y["p"] and x["q"].dtype == y["q"].dtype
+                    and np.array_equal(x["q"], y["q"])
+                    for x, y in zip(a["leaves"], b["leaves"])))
+
+
+def _http_post(port, name, body, timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/{name}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+class _Echo:
+    """An actor, and a deployment, that hands its argument back: what a
+    request costs on each layer of the serve plane without the model."""
+
+    def __call__(self, x=None):
+        return x
+
+    echo = __call__  # an actor handle calls no __call__
+
+
+def _plane_overhead(rserve, rmt, port, body, n=30):
+    """Median and max ms of ``n`` sequential echo requests of ``body``
+    by a plain actor call, through ``handle.remote`` (router, replica
+    wrapper) and through the HTTP proxy (JSON, proxy actor, router)."""
+    import numpy as np
+
+    actor = rmt.remote(_Echo).options(num_cpus=0).remote()
+    handle = rserve.run(rserve.deployment(_Echo, name="echo").bind())
+    paths = {"actor": lambda: rmt.get(actor.echo.remote(body), timeout=60),
+             "handle": lambda: rmt.get(handle.remote(body), timeout=60),
+             "http": lambda: _http_post(port, "echo", body, timeout=60)}
+    out = {}
+    try:
+        for name, call in paths.items():
+            if call() != body:
+                raise AssertionError(f"serve plane: {name} echo differs")
+            ms = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                call()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[name] = (float(np.median(ms)), max(ms))
+    finally:
+        rmt.kill(actor)
+        rserve.delete("echo")
+    return out
+
+
+def _deploy_served(rserve, rmt, app, t0):
+    """``serve.run`` of ``app`` as ``ServedLLM``; returns (handle, run s,
+    s from ``t0`` to the first reply). One replica must be live when
+    ``serve.run`` returns: a replica that missed readiness leaves none."""
+    handle = rserve.run(_served(app))
+    run_s = time.perf_counter() - t0
+    live = rserve.status("LLM")["num_replicas"]
+    if live != 1:
+        raise AssertionError(f"serve plane: {live} live replicas after "
+                             "serve.run, want 1")
+    rmt.get(handle.remote({"tokens": [5, 6, 7]}), timeout=600)
+    return handle, run_s, time.perf_counter() - t0
+
+
+def phase_serve_plane(device, serve, actor, card, preset="gpt2-small",
+                      max_batch_size=8, max_new_tokens=32, seed=0):
+    """The serve plane on the card (see the module docstring, phase 8)."""
+    import numpy as np
+    import torch
+
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch import serve as rserve
+    from ray_memory_management_tpu_torch.core import codec
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.serve.api import _ctrl
+    from ray_memory_management_tpu_torch.serve.http_proxy import start_proxy
+    from ray_memory_management_tpu_torch.serve.llm import (
+        LLMServer, llm_deployment, pack_weights)
+
+    cfg = gpt.PRESETS[preset]
+    kw = dict(max_batch_size=max_batch_size, max_new_tokens=max_new_tokens,
+              seed=seed)
+    rng = np.random.default_rng(2)
+    seq = [rng.integers(2, cfg.vocab_size, size=n).tolist()
+           for n in (7, 130, 600)]
+    reqs = _serve_requests(cfg.vocab_size, seed)
+
+    # in-process references and cold starts: init, then pack + shipped
+    t0 = time.perf_counter()
+    srv = LLMServer(preset=preset, device=device, **kw)
+    _sync(device)
+    cold_init_s = time.perf_counter() - t0
+    try:
+        want_init = [srv.generate(p) for p in seq]
+        t0 = time.perf_counter()
+        payload = pack_weights(srv.params, "bf16")
+        pack_s = time.perf_counter() - t0
+    finally:
+        srv.close()
+    del srv
+    payload_bytes = sum(codec.quantized_nbytes(leaf)
+                        for leaf in payload["leaves"])
+    t0 = time.perf_counter()
+    srv = LLMServer(preset=preset, weights=payload, device=device, **kw)
+    _sync(device)
+    cold_shipped_s = time.perf_counter() - t0
+    try:
+        want_shipped = [srv.generate(p) for p in seq]
+    finally:
+        srv.close()
+    del srv
+    torch.cuda.empty_cache()
+    log(f"[serve-plane] in-process {preset} on {device}: cold start init "
+        f"{cold_init_s:.3f} s, shipped {cold_shipped_s:.3f} s (+ pack "
+        f"{pack_s:.3f} s = {pack_s + cold_shipped_s:.3f} s); bf16 payload "
+        f"{payload_bytes} bytes for {sum(l['q'].size for l in payload['leaves'])} "
+        f"parameters")
+
+    opts = {"num_gpus": 1}
+    t0 = time.perf_counter()
+    rmt.init(num_cpus=4, object_store_memory=SERVE_PLANE_STORE)
+    init_s = time.perf_counter() - t0
+    try:
+        rserve.start(http_port=0)
+        port = start_proxy(_ctrl(), 0)
+        log(f"[serve-plane] rmt.init(num_cpus=4, object_store_memory="
+            f"{SERVE_PLANE_STORE}) in {init_s:.3f} s; HTTP proxy on "
+            f"127.0.0.1:{port}")
+
+        overhead = _plane_overhead(rserve, rmt, port,
+                                   {"tokens": seq[2]})
+        log(f"[serve-plane] echo of a {len(seq[2])}-token request, "
+            f"median / max ms of 30: " + ", ".join(
+                f"{k} {m:.2f} / {x:.2f}" for k, (m, x) in overhead.items()))
+
+        # the main path: shipped weights, one GPU replica
+        t0 = time.perf_counter()
+        app = llm_deployment(preset, ray_actor_options=opts,
+                             ship_weights="bf16", **kw)
+        build_s = time.perf_counter() - t0
+        if not _same_payload(app.kwargs["weights"], payload):
+            raise AssertionError("serve plane: llm_deployment's payload "
+                                 "differs from the in-process one")
+        h, run_s, first_s = _deploy_served(rserve, rmt, app, t0)
+        c0 = rmt.get(h.counters.remote(), timeout=60)
+        rmt.get(h.reset_counters.remote(), timeout=60)
+        runs = [_burst(lambda r: rmt.get(h.remote(r), timeout=600), reqs)]
+        c = rmt.get(h.counters.remote(), timeout=60)
+        runs.append(_burst(lambda r: rmt.get(h.remote(r), timeout=600),
+                           reqs))
+        got = [rmt.get(h.remote({"tokens": p}), timeout=600)["tokens"]
+               for p in seq]
+        http_got = [_http_post(port, "LLM", {"tokens": p})["tokens"]
+                    for p in seq]
+        http_runs = [_burst(lambda r: _http_post(port, "LLM", r), reqs)
+                     for _ in range(2)]
+        before = rmt.get(h.counters.remote(), timeout=60)
+        t0 = time.perf_counter()
+        h = rserve.run(_served(llm_deployment(
+            preset, ray_actor_options=opts, ship_weights="bf16", **kw)))
+        redeploy_s = time.perf_counter() - t0
+        after = rmt.get(h.counters.remote(), timeout=60)
+        live = rserve.status("LLM")["num_replicas"]
+        rserve.delete("LLM")
+
+        # the same without shipping: the replica draws its own weights
+        t0 = time.perf_counter()
+        app = llm_deployment(preset, ray_actor_options=opts, **kw)
+        h, run_init_s, first_init_s = _deploy_served(rserve, rmt, app, t0)
+        got_init = [rmt.get(h.remote({"tokens": p}), timeout=600)["tokens"]
+                    for p in seq]
+        c_init = rmt.get(h.counters.remote(), timeout=60)
+    finally:
+        rserve.shutdown()
+        rmt.shutdown()
+    segs, procs = _leftovers()
+
+    errors = [(r[3], r[4]) for r in runs + http_runs if r[3] or r[4]]
+    answers = [r for run in runs + http_runs for r in run[0] if r]
+    budget_ok = all(len(r["tokens"]) == max_new_tokens for r in answers)
+    vocab_ok = all(0 <= t < cfg.vocab_size
+                   for r in answers for t in r["tokens"])
+    launches = c["launches"]["flash_attention_fwd"]
+    pages = c["stats"]["kv"]["pages_in_use"]
+    need = cfg.n_layers * len(reqs)
+    lease, uuid = _driver_card(device)
+
+    def rate(run):
+        gen = sum(len(r["tokens"]) for r in run[0] if r)
+        return len(reqs) / run[2], gen / run[2]
+
+    handle_rates = [rate(r) for r in runs]
+    http_rates = [rate(r) for r in http_runs]
+    kept = (after["pid"] == before["pid"]
+            and after["stats"]["requests"] == before["stats"]["requests"]
+            and after["cold_starts"] == before["cold_starts"])
+    log(f"[serve-plane] serve.run(llm_deployment({preset!r}, "
+        f"ray_actor_options={opts}, ship_weights='bf16')): llm_deployment "
+        f"(draw, pack, put) {build_s:.3f} s, serve.run returned at "
+        f"{run_s:.3f} s, first reply at {first_s:.3f} s; replica pid "
+        f"{c0['pid']} on {c0['device']} (CUDA_VISIBLE_DEVICES="
+        f"{c0['cuda_visible_devices']!r}, want {lease!r}; its card the "
+        f"driver's={c0['device_uuid'] == uuid}); its cold start "
+        f"{c0['cold_starts']}")
+    log(f"[serve-plane] bursts of {len(reqs)} concurrent requests through "
+        f"handle.remote: walls {[round(r[2], 3) for r in runs]} s, "
+        f"requests/s {[round(x, 2) for x, _ in handle_rates]}, tokens/s "
+        f"{[round(y, 1) for _, y in handle_rates]}; through the HTTP proxy:"
+        f" walls {[round(r[2], 3) for r in http_runs]} s, requests/s "
+        f"{[round(x, 2) for x, _ in http_rates]}, tokens/s "
+        f"{[round(y, 1) for _, y in http_rates]} (in-process phase_serve "
+        f"median {serve['requests_per_s']:.2f} requests/s, "
+        f"{serve['tokens_per_s']:.1f} tokens/s; GPU actor "
+        f"{actor['requests_per_s']:.2f} requests/s, "
+        f"{actor['tokens_per_s']:.1f} tokens/s); replica flash launches in "
+        f"the first burst {launches} {c['designs']} (need >= {need}, all "
+        f"wgmma); pages_in_use after it={pages}; errors {errors}")
+    log(f"[serve-plane] greedy tokens, prompt lens {[len(p) for p in seq]}:"
+        f" handle vs in-process LLMServer(weights=payload) "
+        f"{'equal' if got == want_shipped else 'DIFFER'}; HTTP "
+        f"{'equal' if http_got == want_shipped else 'DIFFER'}; redeploy of "
+        f"the same application in {redeploy_s:.3f} s kept the replica="
+        f"{kept} (pid {before['pid']} -> {after['pid']}, requests "
+        f"{before['stats']['requests']} -> {after['stats']['requests']}, "
+        f"{live} live); without ship_weights: serve.run returned at "
+        f"{run_init_s:.3f} s, first reply at {first_init_s:.3f} s, replica "
+        f"cold start {c_init['cold_starts']}, tokens vs in-process "
+        f"LLMServer(seed={seed}) "
+        f"{'equal' if got_init == want_init else 'DIFFER'}")
+    log(f"[serve-plane] after serve.shutdown() and rmt.shutdown(): shm "
+        f"segments {segs}, port worker/zygote processes {procs}")
+    if errors:
+        raise AssertionError(f"serve plane: failed or hung requests "
+                             f"{errors}")
+    if not (budget_ok and vocab_ok):
+        raise AssertionError("serve plane: a request missed its token "
+                             "budget or returned ids outside the vocabulary")
+    if pages != 0:
+        raise AssertionError(f"serve plane: the replica holds {pages} KV "
+                             "pages")
+    if launches < need or c["designs"]["wgmma"] != launches:
+        raise AssertionError(f"serve plane: replica flash launches "
+                             f"{launches} {c['designs']}, need >= {need}, "
+                             "all wgmma")
+    for probe in (c0, c_init):
+        if (probe["cuda_visible_devices"] != lease
+                or probe["device_uuid"] != uuid
+                or not probe["device"].startswith("cuda")):
+            raise AssertionError(
+                f"serve plane: a replica runs on {probe['device']} with "
+                f"CUDA_VISIBLE_DEVICES={probe['cuda_visible_devices']!r}")
+    if c0["cold_starts"]["shipped"]["count"] != 1 or \
+            c_init["cold_starts"]["init"]["count"] != 1:
+        raise AssertionError("serve plane: replica cold starts "
+                             f"{c0['cold_starts']} {c_init['cold_starts']}")
+    if got != want_shipped or http_got != want_shipped:
+        raise AssertionError(f"serve plane: handle {got} / HTTP {http_got}"
+                             f" != in-process {want_shipped}")
+    if got_init != want_init:
+        raise AssertionError(f"serve plane: unshipped replica {got_init} "
+                             f"!= in-process {want_init}")
+    if not kept or live != 1:
+        raise AssertionError(f"serve plane: the redeploy replaced the "
+                             f"replica ({before} -> {after}, {live} live)")
+    if segs or procs:
+        raise AssertionError(f"serve plane: left behind shm {segs} and "
+                             f"processes {procs}")
+    med = lambda xs: float(np.median(xs))  # noqa: E731
+    figures = (
+        f"[serve-plane] {card}: handle_requests_per_s="
+        f"{med([x for x, _ in handle_rates]):.2f} handle_tokens_per_s="
+        f"{med([y for _, y in handle_rates]):.1f} http_requests_per_s="
+        f"{med([x for x, _ in http_rates]):.2f} http_tokens_per_s="
+        f"{med([y for _, y in http_rates]):.1f} in_process_requests_per_s="
+        f"{serve['requests_per_s']:.2f} actor_requests_per_s="
+        f"{actor['requests_per_s']:.2f} run_to_first_reply_shipped_s="
+        f"{first_s:.3f} run_to_first_reply_init_s={first_init_s:.3f} "
+        f"cold_start_in_process_init_s={cold_init_s:.3f} "
+        f"cold_start_in_process_shipped_s={cold_shipped_s:.3f} pack_s="
+        f"{pack_s:.3f} payload_bytes={payload_bytes} redeploy_s="
+        f"{redeploy_s:.3f} echo_ms_median actor="
+        f"{overhead['actor'][0]:.2f} handle={overhead['handle'][0]:.2f} "
+        f"http={overhead['http'][0]:.2f}")
+    log(figures)
+    return dict(launches=launches, designs=c["designs"],
+                handle_rates=handle_rates, http_rates=http_rates,
+                first_reply_shipped_s=first_s, first_reply_init_s=first_init_s,
+                build_s=build_s, run_s=run_s, run_init_s=run_init_s,
+                cold_init_s=cold_init_s, cold_shipped_s=cold_shipped_s,
+                pack_s=pack_s, payload_bytes=payload_bytes,
+                redeploy_s=redeploy_s, init_s=init_s, overhead=overhead,
+                figures=figures)
 
 
 def main() -> int:
@@ -1265,6 +1612,7 @@ def main() -> int:
     phase_engine_parity(device)
     train = phase_train(device)
     runtime = phase_runtime(device, serve, card)
+    plane = phase_serve_plane(device, serve, runtime["actor"], card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -1274,9 +1622,11 @@ def main() -> int:
                        "causal": MAIN_CASE[3]},
         "forward_train_shape": train_fwd, "backward_main": bwd,
         "forward": fwd, "grad": grad, "serve": serve, "train": train,
-        "runtime": runtime}}))
-    # the runtime's figures again, where the end of the output keeps them
+        "runtime": runtime, "serve_plane": plane}}))
+    # the runtime's and the serve plane's figures again, where the end of
+    # the output keeps them
     log(runtime["figures"])
+    log(plane["figures"])
     src = "ray_memory_management_tpu_torch/csrc/"
     ref = "ray_memory_management_tpu/ops/flash_attention.py:"
     pair = ("SDPA backward, dq, dk and dv together, on the same inputs")
@@ -1315,6 +1665,9 @@ def main() -> int:
         # process, counts zeroed just before) and in one GPU task
         "launches_actor": runtime["actor"]["launches"],
         "launches_gpu_task": runtime["task"]["launches"],
+        # the serve plane: launches in the replica's first burst through
+        # handle.remote (its own process, counts zeroed just before)
+        "launches_replica": plane["launches"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",

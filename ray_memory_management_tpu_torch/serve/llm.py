@@ -17,6 +17,10 @@ bucket here; buckets still bound the prefill shapes. Prefill runs
 attention kernel; decode steps attend over the cache in plain PyTorch.
 Requests carry token ids (``{"tokens": [...]}``) or text
 (``{"text": ...}``, byte-level fallback tokenizer).
+
+:func:`llm_deployment` wraps ``LLMServer`` as a serve deployment, and
+:func:`pack_weights` / :func:`unpack_weights` ship its parameters to
+replicas quantized, in place of each replica drawing its own.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 from ..models import gpt
 from ..utils import faults
 from ..utils.device import resolve_device
+from .deployment import deployment
 
 
 class _Pending:
@@ -479,11 +484,62 @@ class ContinuousBatcher:
         return out
 
 
+def _param_leaves(params, prefix=()):
+    """(key path, tensor) of every leaf of a nested param dict, in the
+    order ``jax.tree_util.tree_flatten`` takes the same dict (keys
+    sorted at every level)."""
+    for key in sorted(params):
+        node = params[key]
+        if isinstance(node, dict):
+            yield from _param_leaves(node, prefix + (key,))
+        else:
+            yield prefix + (key,), node
+
+
+def pack_weights(params, precision: str = "bf16") -> Dict[str, Any]:
+    """Quantize a param dict for the movement plane: per-leaf
+    :func:`~..core.codec.quantize_array` payloads (bf16 ~2x, int8 ~4x
+    smaller than f32), so shipping weights to a cold replica moves a
+    fraction of the bytes a full-precision pickle would. The key paths
+    stand where the JAX package's payload holds a treedef; the leaves
+    are the same, in the same order. Counted under
+    ``rmt_collective_quantized_ops_total{op="serve.weights"}``."""
+    from ..core import codec
+
+    paths, payloads = [], []
+    for path, leaf in _param_leaves(params):
+        paths.append(path)
+        payloads.append(codec.quantize_array(
+            leaf.detach().float().cpu().numpy(), precision))
+    codec.count_quantized_op("serve.weights", precision)
+    return {"paths": paths, "leaves": payloads, "p": precision}
+
+
+def unpack_weights(payload: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """Inverse of :func:`pack_weights`: dequantize each leaf to fp32 and
+    rebuild the param dict on ``device`` (the card unless the caller
+    passes another)."""
+    from ..core import codec
+
+    device = resolve_device(device)
+    params: Dict[str, Any] = {}
+    for path, leaf in zip(payload["paths"], payload["leaves"]):
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.from_numpy(
+            codec.dequantize_array(leaf)).to(device)
+    return params
+
+
 class LLMServer:
     """Deployment class: KV-cached batched generation on one card.
 
     Parameters are drawn on ``device`` (the card unless the caller passes
-    ``device="cpu"``) from a generator seeded ``seed``. ``user_config``
+    ``device="cpu"``) from a generator seeded ``seed``. ``weights`` (a
+    :func:`pack_weights` payload) skips that draw: the cold-start path
+    of scale-up replicas; both paths time their init under
+    ``rmt_serve_cold_start_seconds{source=shipped|init}``. ``user_config``
     (reconfigure) can retune ``max_new_tokens`` / ``temperature``."""
 
     def __init__(self, preset: str = "gpt2-small",
@@ -498,7 +554,9 @@ class LLMServer:
                  kv_cache: str = "paged",
                  kv_page_tokens: Optional[int] = None,
                  kv_pool_bytes: Optional[int] = None,
+                 weights: Optional[Dict[str, Any]] = None,
                  device=None):
+        t0 = time.monotonic()
         self.device = resolve_device(device)
         self.cfg = gpt.PRESETS[preset]
         if max_new_tokens + pad_multiple > self.cfg.max_seq:
@@ -506,8 +564,13 @@ class LLMServer:
                 f"max_new_tokens={max_new_tokens} leaves no room for a "
                 f"{pad_multiple}-token prompt bucket within the model's "
                 f"max_seq={self.cfg.max_seq}")
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = gpt.init_params(self.cfg, gen, self.device)
+        if weights is not None:
+            self.params = unpack_weights(weights, self.device)
+            cold_source = "shipped"
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            self.params = gpt.init_params(self.cfg, gen, self.device)
+            cold_source = "init"
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
         self.pad_multiple = pad_multiple
@@ -533,6 +596,12 @@ class LLMServer:
                 batch_wait_timeout_s=batch_wait_timeout_s)
         else:
             raise ValueError(f"unknown batching mode: {batching!r}")
+        try:
+            from ..core import metrics_defs as mdefs
+            mdefs.serve_cold_start_seconds().observe(
+                time.monotonic() - t0, tags={"source": cold_source})
+        except Exception:  # noqa: BLE001 — metrics never fail init
+            pass
 
     def _new_engine(self) -> ContinuousBatcher:
         return ContinuousBatcher(
@@ -645,4 +714,52 @@ class LLMServer:
                 for i in range(n)]
 
 
-__all__ = ["ContinuousBatcher", "DynamicBatcher", "LLMServer"]
+def llm_deployment(preset: str = "gpt2-small",
+                   ray_actor_options: Optional[dict] = None,
+                   max_concurrent_queries: int = 64,
+                   ship_weights: Optional[str] = None, **kwargs):
+    """A ready-to-run Application serving ``preset``:
+
+        from ray_memory_management_tpu_torch import serve
+        serve.run(serve.llm_deployment(
+            "gpt2-small", ray_actor_options={"num_gpus": 1}))
+        serve.get_handle("LLM").remote({"tokens": [1, 2, 3]})
+
+    Pass ``ray_actor_options={"num_gpus": 1}`` so the replica takes a
+    card lease (``CUDA_VISIBLE_DEVICES`` isolation) and serves from the
+    card. A replica without a lease sees no card and fails to start
+    unless ``device="cpu"`` (passed on to :class:`LLMServer` with the
+    other ``kwargs``) asks for the CPU.
+
+    ``ship_weights="bf16"|"int8"|"f32"`` draws the params ONCE on the
+    driver, with the generator and on the device the replica would use
+    (torch's CPU and CUDA generators draw differently for one seed), and
+    ships them quantized to every replica (:func:`pack_weights`) instead
+    of each replica drawing its own. The payload is also put into the
+    object store so the controller can place new replicas near the tier
+    holding it (the ``placement_hint`` in the deployment config)."""
+    placement_hint = None
+    if ship_weights:
+        cfg = gpt.PRESETS[preset]
+        device = resolve_device(kwargs.get("device"))
+        gen = torch.Generator(device=device).manual_seed(
+            kwargs.get("seed", 0))
+        params = gpt.init_params(cfg, gen, device)
+        kwargs["weights"] = pack_weights(params, precision=ship_weights)
+        del params
+        try:
+            from .. import api as core_api
+
+            placement_hint = core_api.put(kwargs["weights"]).hex()
+        except Exception:  # noqa: BLE001 — the hint is best-effort; a
+            placement_hint = None  # driver without a running runtime
+            # still gets weights shipped via the deployment config
+    return deployment(
+        LLMServer, name="LLM", ray_actor_options=ray_actor_options,
+        max_concurrent_queries=max_concurrent_queries,
+        placement_hint=placement_hint,
+    ).bind(preset=preset, **kwargs)
+
+
+__all__ = ["ContinuousBatcher", "DynamicBatcher", "LLMServer",
+           "llm_deployment", "pack_weights", "unpack_weights"]

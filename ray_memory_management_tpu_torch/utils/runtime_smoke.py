@@ -56,11 +56,11 @@ def attend(q, k, v, causal: bool = True) -> Dict[str, Any]:
 
 
 class ServedLLM(LLMServer):
-    """``LLMServer`` as a GPU actor, with two reads of the actor process's
-    own state that a caller outside the process cannot make: the flash
-    attention launch counts, the KV page pool and its card's UUID (on
-    the CPU, None). Serving is
-    ``LLMServer``'s, unchanged (``generate``)."""
+    """``LLMServer`` as a GPU actor or serve replica, with reads of the
+    process's own state that a caller outside it cannot make: the flash
+    attention launch counts, the KV page pool, its card's UUID (on the
+    CPU, None), its pid and its cold starts. Serving is ``LLMServer``'s,
+    unchanged (``generate``, ``__call__``)."""
 
     def reset_counters(self) -> None:
         from ..ops.flash_attention import reset_launch_count
@@ -68,9 +68,16 @@ class ServedLLM(LLMServer):
         reset_launch_count()
 
     def counters(self) -> Dict[str, Any]:
+        from ..core import metrics_defs as mdefs
         from ..ops.flash_attention import fwd_design_counts, launch_counts
 
+        cold = mdefs.serve_cold_start_seconds()
         return {"launches": launch_counts(),
+                "pid": os.getpid(),
+                "cold_starts": {
+                    source: {k: cold.get(tags={"source": source})[k]
+                             for k in ("count", "sum")}
+                    for source in ("shipped", "init")},
                 "designs": fwd_design_counts(),
                 "stats": self.stats(),
                 "device": str(self.device),
