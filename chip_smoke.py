@@ -90,6 +90,25 @@ Phases, each of which must pass (any failure exits non-zero):
                 deployment without ``ship_weights`` gives the in-process
                 seed-0 server's tokens; nothing left behind after
                 ``serve.shutdown()`` and ``rmt.shutdown()``.
+  9. multinode — the multi-node runtime with the card on a node agent:
+                ``rmt.init(num_gpus=0)`` (the head holds no card) and
+                ``add_remote_node_process(num_gpus=1)``, an agent process
+                on this host that holds it (cluster GPU 1, all on the
+                agent). A ``num_gpus=1`` task runs the forward kernel on
+                the agent, on q, k, v the driver put: it must run on the
+                agent's node, with the lease the agent reported, on the
+                driver's card by UUID, bit-equal to the driver's own call,
+                every launch wgmma (first call and the warm median of ten
+                timed). 256 MiB fp32 and bf16 CUDA tensors go driver →
+                a GPU task on the agent → driver bit-equal, timed each
+                way. A ``num_gpus=1`` actor pinned to the agent serves
+                ``phase_serve``'s burst (KV pages back to 0, >= 12
+                forward launches per request, all wgmma, greedy tokens
+                equal to an in-process server's). Then the agent process
+                is SIGKILLed: the actor's next call raises
+                ``ActorDiedError`` and the cluster's GPU total reads 0;
+                after ``rmt.shutdown()`` no ``rmtA_`` segment and no
+                agent, worker or zygote process of the port is left.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -1030,9 +1049,13 @@ def _runtime_host_path(device, nbytes=256 << 20, reps=3):
     return out
 
 
-def _runtime_gpu_task(device, warm=10):
+def _runtime_gpu_task(device, warm=10, lease=None, node=None,
+                      tag="runtime"):
     """A ``num_gpus=1`` task runs the forward kernel in its worker on
-    q, k, v passed as ObjectRefs at the serving prefill shape."""
+    q, k, v passed as ObjectRefs at the serving prefill shape. ``lease``
+    is the ``CUDA_VISIBLE_DEVICES`` the worker must see (default: the
+    driver's first card) and ``node`` the node it must run on (default:
+    any)."""
     import numpy as np
     import torch
 
@@ -1059,12 +1082,16 @@ def _runtime_gpu_task(device, warm=10):
         want = flash_attention(q, k, v, causal=True)
     out = first["out"]
     launches = first["launches"]["flash_attention_fwd"]
-    lease, uuid = _driver_card(device)
+    driver_lease, uuid = _driver_card(device)
+    lease = driver_lease if lease is None else lease
+    on_node = node is None or first["node_id"] == node.hex()
     ok = (out.device.type == device.type and _bit_equal(out, want)
           and launches >= 1 and first["designs"]["wgmma"] == launches
           and first["cuda_visible_devices"] == lease
-          and first["device_uuid"] == uuid)
-    log(f"[runtime] GPU task (num_gpus=1) flash_attention bf16 BH={BH} "
+          and first["device_uuid"] == uuid and on_node)
+    where = "" if node is None else (
+        f" on node {first['node_id'][:8]} (want {node.hex()[:8]})")
+    log(f"[{tag}] GPU task (num_gpus=1){where} flash_attention bf16 BH={BH} "
         f"S={MAIN_CASE[1]} D={HEAD_DIM} causal from ObjectRefs: output on "
         f"{out.device} bit-equal to the driver's call="
         f"{_bit_equal(out, want)}; worker CUDA_VISIBLE_DEVICES="
@@ -1075,7 +1102,7 @@ def _runtime_gpu_task(device, warm=10):
         f"import, CUDA init, library load), warm median "
         f"{float(np.median(warm_s)) * 1e3:.1f} ms over {warm}")
     if not ok:
-        raise AssertionError("runtime: the GPU task's kernel call failed "
+        raise AssertionError(f"{tag}: the GPU task's kernel call failed "
                              "its checks")
     return dict(first_s=first_s, warm_ms_median=float(np.median(warm_s))
                 * 1e3, warm_s=warm_s, launches=launches,
@@ -1083,10 +1110,14 @@ def _runtime_gpu_task(device, warm=10):
 
 
 def _runtime_actor(device, serve, preset="gpt2-small", max_batch_size=8,
-                   max_new_tokens=32, seed=0):
+                   max_new_tokens=32, seed=0, lease=None, node=None,
+                   tag="runtime", keep=False):
     """A GPU actor serving gpt2-small: ``phase_serve``'s burst through
     ``.generate.remote``, then greedy parity with an in-process
-    ``LLMServer`` of the same seed, one prompt at a time."""
+    ``LLMServer`` of the same seed, one prompt at a time. ``lease`` and
+    ``node`` as for ``_runtime_gpu_task`` (a ``node`` also pins the
+    actor there); with ``keep`` the live actor is returned under
+    ``"actor"`` instead of killed."""
     import numpy as np
     import torch
 
@@ -1097,8 +1128,14 @@ def _runtime_actor(device, serve, preset="gpt2-small", max_batch_size=8,
     from ray_memory_management_tpu_torch.utils import runtime_smoke
 
     cfg = gpt.PRESETS[preset]
-    served = rmt.remote(runtime_smoke.ServedLLM).options(
-        num_gpus=1, max_concurrency=16)
+    opts = dict(num_gpus=1, max_concurrency=16)
+    if node is not None:
+        from ray_memory_management_tpu_torch.core.scheduling_strategies \
+            import NodeAffinitySchedulingStrategy
+
+        opts["scheduling_strategy"] = NodeAffinitySchedulingStrategy(
+            node_id=node, soft=False)
+    served = rmt.remote(runtime_smoke.ServedLLM).options(**opts)
     t0 = time.perf_counter()
     actor = served.remote(preset=preset, max_batch_size=max_batch_size,
                           max_new_tokens=max_new_tokens, seed=seed)
@@ -1131,10 +1168,15 @@ def _runtime_actor(device, serve, preset="gpt2-small", max_batch_size=8,
         srv.close()
     theirs = [rmt.get(actor.generate.remote(p), timeout=600) for p in seq]
     same = mine == theirs
-    rmt.kill(actor)
+    if not keep:
+        rmt.kill(actor)
     rps, tps = len(prompts) / wall, gen_tokens / wall
-    lease, uuid = _driver_card(device)
-    log(f"[runtime] GPU actor {preset} on {c['device']} (worker "
+    driver_lease, uuid = _driver_card(device)
+    lease = driver_lease if lease is None else lease
+    on_node = node is None or c["node_id"] == node.hex()
+    where = "" if node is None else (
+        f" on node {c['node_id'][:8]} (want {node.hex()[:8]})")
+    log(f"[{tag}] GPU actor {preset}{where} on {c['device']} (worker "
         f"CUDA_VISIBLE_DEVICES={c['cuda_visible_devices']!r}, want "
         f"{lease!r}; its card the driver's={c['device_uuid'] == uuid}), "
         f"started in "
@@ -1148,24 +1190,28 @@ def _runtime_actor(device, serve, preset="gpt2-small", max_batch_size=8,
         f"in-process LLMServer of seed {seed}, prompt lens "
         f"{[len(p) for p in seq]}: {'equal' if same else 'DIFFER'}")
     if not (budget_ok and vocab_ok):
-        raise AssertionError("runtime: an actor request missed its token "
+        raise AssertionError(f"{tag}: an actor request missed its token "
                              "budget or returned ids outside the vocabulary")
     if pages != 0:
-        raise AssertionError(f"runtime: the actor holds {pages} KV pages")
+        raise AssertionError(f"{tag}: the actor holds {pages} KV pages")
     if launches < need or c["designs"]["wgmma"] != launches:
-        raise AssertionError(f"runtime: actor flash launches {launches} "
+        raise AssertionError(f"{tag}: actor flash launches {launches} "
                              f"{c['designs']}, need >= {need}, all wgmma")
     if (c["cuda_visible_devices"] != lease or c["device_uuid"] != uuid
-            or not c["device"].startswith("cuda")):
-        raise AssertionError(f"runtime: the actor runs on {c['device']} "
+            or not c["device"].startswith("cuda") or not on_node):
+        raise AssertionError(f"{tag}: the actor runs on {c['device']} "
                              f"with CUDA_VISIBLE_DEVICES="
-                             f"{c['cuda_visible_devices']!r}")
+                             f"{c['cuda_visible_devices']!r} on node "
+                             f"{c['node_id']}")
     if not same:
-        raise AssertionError(f"runtime: actor tokens {theirs} != "
+        raise AssertionError(f"{tag}: actor tokens {theirs} != "
                              f"in-process {mine}")
-    return dict(start_s=start_s, wall_s=wall, requests_per_s=rps,
-                tokens_per_s=tps, launches=launches, designs=c["designs"],
-                requests=len(prompts))
+    out = dict(start_s=start_s, wall_s=wall, requests_per_s=rps,
+               tokens_per_s=tps, launches=launches, designs=c["designs"],
+               requests=len(prompts))
+    if keep:
+        out["actor"] = actor
+    return out
 
 
 def _driver_card(device):
@@ -1181,9 +1227,11 @@ def _driver_card(device):
 
 
 def _port_processes():
-    """PIDs of live worker and zygote processes of the port."""
+    """PIDs of live node-agent, worker and zygote processes of the
+    port."""
     marks = (b"ray_memory_management_tpu_torch.core.worker_main",
-             b"ray_memory_management_tpu_torch.core.zygote")
+             b"ray_memory_management_tpu_torch.core.zygote",
+             b"ray_memory_management_tpu_torch.core.node_agent")
     pids = []
     for name in os.listdir("/proc"):
         if not name.isdigit() or int(name) == os.getpid():
@@ -1201,12 +1249,13 @@ def _port_processes():
 
 
 def _leftovers(wait_s=20.0):
-    """(shm segments of this driver, live worker/zygote processes of the
-    port), waiting up to ``wait_s`` for a shutdown to clear them."""
-    prefix = f"rmt_{os.getpid()}_"
+    """(shm segments of this driver and of any node agent, live
+    node-agent/worker/zygote processes of the port), waiting up to
+    ``wait_s`` for a shutdown to clear them."""
+    prefixes = (f"rmt_{os.getpid()}_", "rmtA_")
     deadline = time.monotonic() + wait_s
     while True:
-        segs = [n for n in os.listdir("/dev/shm") if n.startswith(prefix)]
+        segs = [n for n in os.listdir("/dev/shm") if n.startswith(prefixes)]
         procs = _port_processes()
         if not (segs or procs) or time.monotonic() > deadline:
             return segs, procs
@@ -1239,7 +1288,7 @@ def phase_runtime(device, serve, card, tier_n=16 << 20):
         rmt.shutdown()
     segs, procs = _leftovers()
     log(f"[runtime] after rmt.shutdown(): shm segments {segs}, port "
-        f"worker/zygote processes {procs}")
+        f"agent/worker/zygote processes {procs}")
     if segs or procs:
         raise AssertionError(f"runtime: left behind shm {segs} and "
                              f"processes {procs}")
@@ -1579,6 +1628,161 @@ def phase_serve_plane(device, serve, actor, card, preset="gpt2-small",
                 figures=figures)
 
 
+def _multinode_bytes(device, agent, lease, nbytes=256 << 20, reps=3):
+    """CUDA tensors driver → a ``num_gpus=1`` task on the agent, which
+    hands them back → driver: bit-equal both ways, with GB/s each way
+    (the task stamps when the tensor had landed on its card and when it
+    returned; the driver's clock reads the rest, on the same host). The
+    way there is split at the driver's ``put`` (device→host copy into
+    the head's store) and the rest (to the agent's card)."""
+    import numpy as np
+    import torch
+
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch.utils import runtime_smoke
+
+    echo = rmt.remote(runtime_smoke.echo).options(num_gpus=1)
+    gen = torch.Generator(device=device).manual_seed(14)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        n = nbytes // torch.tensor([], dtype=dtype).element_size()
+        x = torch.randn(n, device=device, generator=gen).to(dtype)
+        there, back, puts = [], [], []
+        for _ in range(reps):
+            _sync(device)
+            t0 = time.time()
+            ref = rmt.put(x)
+            puts.append(time.time() - t0)
+            r = rmt.get(echo.remote(ref), timeout=600)
+            y = r["x"]
+            _sync(device)
+            t1 = time.time()
+            there.append(r["t_in"] - t0)
+            back.append(t1 - r["t_out"])
+            if not (y.device.type == device.type and _bit_equal(y, x)):
+                raise AssertionError(f"multinode: a {dtype} CUDA tensor did "
+                                     f"not come back bit-equal on cuda "
+                                     f"(got {y.device})")
+            if (r["node_id"] != agent.hex()
+                    or r["cuda_visible_devices"] != lease):
+                raise AssertionError(f"multinode: the echo ran on node "
+                                     f"{r['node_id']} with "
+                                     f"CUDA_VISIBLE_DEVICES="
+                                     f"{r['cuda_visible_devices']!r}")
+            del r, y, ref
+        name = str(dtype).removeprefix("torch.")
+        out[name] = dict(to_agent_gb_s=nbytes / float(np.median(there)) / 1e9,
+                         from_agent_gb_s=nbytes / float(np.median(back))
+                         / 1e9, to_agent_s=there, from_agent_s=back,
+                         put_s=puts)
+        log(f"[multinode] {name} {nbytes >> 20} MiB driver -> agent GPU task "
+            f"-> driver: bit-equal both ways on the agent's node; to the "
+            f"agent {out[name]['to_agent_gb_s']:.2f} GB/s, back "
+            f"{out[name]['from_agent_gb_s']:.2f} GB/s (median of {reps}; "
+            f"{[round(t, 4) for t in there]} s, of which the driver's put "
+            f"{[round(t, 4) for t in puts]} s, and "
+            f"{[round(t, 4) for t in back]} s)")
+        del x
+    return out
+
+
+def phase_multinode(device, serve, gpu_actor, card):
+    """The multi-node runtime with the card on a node agent (see the
+    module docstring, phase 9)."""
+    import signal
+
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch.exceptions import ActorDiedError
+
+    t_phase = t0 = time.perf_counter()
+    rt = rmt.init(num_cpus=4, num_gpus=0, object_store_memory=2 << 30)
+    init_s = time.perf_counter() - t0
+    try:
+        head_gpus = rmt.cluster_resources().get("GPU", 0)
+        t0 = time.perf_counter()
+        agent = rt.add_remote_node_process(num_cpus=4, num_gpus=1)
+        join_s = time.perf_counter() - t0
+        nm = rt.nodes[agent]
+        # the names the agent reported for its GPU, before any lease
+        reported = list(nm.free_chips)
+        gpus = rmt.cluster_resources().get("GPU", 0)
+        on_agent = nm.resources.total.get("GPU")
+        on_head = rt.head_node().resources.total.get("GPU")
+        log(f"[multinode] rmt.init(num_cpus=4, num_gpus=0) in {init_s:.3f} "
+            f"s (GPU={head_gpus}); add_remote_node_process(num_cpus=4, "
+            f"num_gpus=1) joined node {agent.hex()[:8]} (agent pid "
+            f"{nm.agent_pid}) in {join_s:.3f} s; cluster GPU={gpus}, on the "
+            f"agent {on_agent}, on the head {on_head}; the agent's reported "
+            f"device names {reported}")
+        if head_gpus != 0 or gpus != 1 or on_agent != 1 or on_head != 0 \
+                or len(reported) != 1:
+            raise AssertionError(f"multinode: GPU {head_gpus} before the "
+                                 f"agent, {gpus} after ({on_agent} on the "
+                                 f"agent, {on_head} on the head), names "
+                                 f"{reported}")
+        lease = reported[0]
+        task = _runtime_gpu_task(device, lease=lease, node=agent,
+                                 tag="multinode")
+        moved = _multinode_bytes(device, agent, lease)
+        store_path = type(rt._store_clients.get(agent)).__name__
+        log(f"[multinode] the head reads the agent's store through "
+            f"{store_path} (StoreClient: the same-host shm store mapped "
+            f"directly; else pulled over the channel)")
+        actor = _runtime_actor(device, serve, lease=lease, node=agent,
+                               tag="multinode", keep=True)
+        handle = actor.pop("actor")
+
+        # agent death: SIGKILL the agent process
+        os.kill(nm.agent_pid, signal.SIGKILL)
+        t0 = time.perf_counter()
+        while nm.alive and time.perf_counter() - t0 < 60:
+            time.sleep(0.05)
+        detect_s = time.perf_counter() - t0
+        try:
+            rmt.get(handle.generate.remote([5, 6, 7]), timeout=120)
+            died = "answered"
+        except ActorDiedError as e:
+            died = type(e).__name__
+        gpus_after = rmt.cluster_resources().get("GPU", 0)
+        log(f"[multinode] SIGKILL of the agent: node dead after "
+            f"{detect_s:.3f} s (alive={nm.alive}); the actor's next call "
+            f"raised {died}; cluster GPU={gpus_after}")
+        if nm.alive or died != "ActorDiedError" or gpus_after != 0:
+            raise AssertionError(f"multinode: after the agent's death the "
+                                 f"node alive={nm.alive}, the actor call "
+                                 f"{died}, GPU={gpus_after}")
+        del handle
+    finally:
+        rmt.shutdown()
+    segs, procs = _leftovers()
+    log(f"[multinode] after rmt.shutdown(): shm segments {segs}, port "
+        f"agent/worker/zygote processes {procs}")
+    if segs or procs:
+        raise AssertionError(f"multinode: left behind shm {segs} and "
+                             f"processes {procs}")
+    phase_s = time.perf_counter() - t_phase
+    figures = (
+        f"[multinode] {card}: phase_s={phase_s:.1f} join_s={join_s:.3f} "
+        f"agent_task_first_s="
+        f"{task['first_s']:.3f} agent_task_warm_ms="
+        f"{task['warm_ms_median']:.2f} to_agent_gb_s fp32="
+        f"{moved['float32']['to_agent_gb_s']:.2f} bf16="
+        f"{moved['bfloat16']['to_agent_gb_s']:.2f} from_agent_gb_s fp32="
+        f"{moved['float32']['from_agent_gb_s']:.2f} bf16="
+        f"{moved['bfloat16']['from_agent_gb_s']:.2f} store_path={store_path}"
+        f" agent_actor_start_s={actor['start_s']:.2f} "
+        f"agent_actor_requests_per_s={actor['requests_per_s']:.2f} "
+        f"agent_actor_tokens_per_s={actor['tokens_per_s']:.1f} "
+        f"gpu_actor_requests_per_s={gpu_actor['requests_per_s']:.2f} "
+        f"gpu_actor_tokens_per_s={gpu_actor['tokens_per_s']:.1f} "
+        f"agent_death_detect_s={detect_s:.3f}")
+    log(figures)
+    return dict(phase_s=phase_s, init_s=init_s, join_s=join_s, lease=lease,
+                task=task,
+                moved=moved, store_path=store_path, actor=actor,
+                detect_s=detect_s, figures=figures)
+
+
 def main() -> int:
     import torch
 
@@ -1613,6 +1817,7 @@ def main() -> int:
     train = phase_train(device)
     runtime = phase_runtime(device, serve, card)
     plane = phase_serve_plane(device, serve, runtime["actor"], card)
+    multinode = phase_multinode(device, serve, runtime["actor"], card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -1622,11 +1827,13 @@ def main() -> int:
                        "causal": MAIN_CASE[3]},
         "forward_train_shape": train_fwd, "backward_main": bwd,
         "forward": fwd, "grad": grad, "serve": serve, "train": train,
-        "runtime": runtime, "serve_plane": plane}}))
-    # the runtime's and the serve plane's figures again, where the end of
-    # the output keeps them
+        "runtime": runtime, "serve_plane": plane,
+        "multinode": multinode}}))
+    # the runtime's, the serve plane's and the multi-node figures again,
+    # where the end of the output keeps them
     log(runtime["figures"])
     log(plane["figures"])
+    log(multinode["figures"])
     src = "ray_memory_management_tpu_torch/csrc/"
     ref = "ray_memory_management_tpu/ops/flash_attention.py:"
     pair = ("SDPA backward, dq, dk and dv together, on the same inputs")
@@ -1668,6 +1875,11 @@ def main() -> int:
         # the serve plane: launches in the replica's first burst through
         # handle.remote (its own process, counts zeroed just before)
         "launches_replica": plane["launches"],
+        # the multi-node path: launches in one GPU task on the node agent
+        # and in the agent-hosted GPU actor's burst (counts zeroed just
+        # before, in their own processes)
+        "launches_agent_task": multinode["task"]["launches"],
+        "launches_agent_actor": multinode["actor"]["launches"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",

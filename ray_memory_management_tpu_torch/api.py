@@ -461,8 +461,9 @@ def init(
 ):
     """Start an in-process cluster with ``num_nodes`` virtual nodes (each a
     NodeManager + store + worker pool). The multi-node shape exists for
-    scheduling/FT semantics and tests (cluster_utils.py analog); production
-    multi-host wiring rides the node agents' object plane (a later slice)."""
+    scheduling/FT semantics and tests (cluster_utils.py analog); other
+    hosts join as node agents (``core/node_agent.py``;
+    ``Runtime.add_remote_node_process`` starts one on this host)."""
     from .core.runtime import Runtime
 
     with _init_lock:

@@ -918,12 +918,23 @@ class Runtime:
                 default_cpus=msg.get("num_cpus", 4),
             )
             node_res = NodeResources(res)
-            nm = RemoteNodeManager(
-                node_id, node_res, self.config,
-                on_worker_started=self._register_worker,
-                channel=conn, gcs=self.gcs,
-                hostname=msg.get("hostname", "?"),
-            )
+            try:
+                nm = RemoteNodeManager(
+                    node_id, node_res, self.config,
+                    on_worker_started=self._register_worker,
+                    channel=conn, gcs=self.gcs,
+                    hostname=msg.get("hostname", "?"),
+                    gpu_names=msg.get("visible_devices"),
+                )
+            except ValueError as e:
+                # GPUs the agent cannot name: refuse the node, with the
+                # reason, rather than lease cards it was never given
+                try:
+                    conn.send({"type": "error", "error": str(e)})
+                except (OSError, BrokenPipeError):
+                    pass
+                conn.close()
+                continue
             # pid on the agent's host — fault-injection tooling (NodeKiller
             # sigkill mode) and diagnostics key off it
             nm.agent_pid = msg.get("pid")

@@ -10,6 +10,7 @@ code; nothing here runs at import.
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Dict
 
 from ..serve.llm import LLMServer
@@ -40,7 +41,7 @@ def attend(q, k, v, causal: bool = True) -> Dict[str, Any]:
     and ``v`` arrive as ObjectRef arguments, rebuilt on the worker's
     CUDA device. Returns the output with the worker's
     ``CUDA_VISIBLE_DEVICES``, its card's UUID and the kernel launches of
-    this call."""
+    this call, and the node it ran on."""
     from ..ops.flash_attention import (
         flash_attention, fwd_design_counts, launch_counts,
         reset_launch_count)
@@ -51,8 +52,24 @@ def attend(q, k, v, causal: bool = True) -> Dict[str, Any]:
     return {"out": out,
             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
             "device_uuid": _device_uuid(out.device),
+            "node_id": os.environ.get("RMT_NODE_ID"),
             "launches": launch_counts(),
             "designs": fwd_design_counts()}
+
+
+def echo(x) -> Dict[str, Any]:
+    """Hand ``x`` back from the worker's card, with the wall-clock times
+    at which it had landed there (``t_in``) and at which the task
+    returned (``t_out``): on one host, the driver's clock splits a round
+    trip into its two directions."""
+    import torch
+
+    _require_cuda(x)
+    torch.cuda.synchronize(x.device)
+    t_in = time.time()
+    return {"x": x, "t_in": t_in, "node_id": os.environ.get("RMT_NODE_ID"),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "t_out": time.time()}
 
 
 class ServedLLM(LLMServer):
@@ -83,5 +100,6 @@ class ServedLLM(LLMServer):
                 "device": str(self.device),
                 "device_uuid": (_device_uuid(self.device)
                                 if self.device.type == "cuda" else None),
+                "node_id": os.environ.get("RMT_NODE_ID"),
                 "cuda_visible_devices":
                     os.environ.get("CUDA_VISIBLE_DEVICES")}

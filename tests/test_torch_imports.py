@@ -86,7 +86,10 @@ def test_walk_covers_the_port():
                   ("core", "worker_main.py"), ("core", "zygote.py"),
                   ("native", "shm_client.py"), ("native", "build.py"),
                   ("analysis", "lockwatch.py"), ("utils", "structlog.py"),
-                  ("utils", "runtime_smoke.py")):
+                  ("utils", "runtime_smoke.py"), ("core", "node_agent.py"),
+                  ("core", "remote_node.py"), ("client", "client.py"),
+                  ("client", "server.py"), ("utils", "sim_agent.py"),
+                  ("utils", "chaos.py"), ("usage_stats.py",)):
         assert os.path.join("ray_memory_management_tpu_torch",
                             *parts) in names
 

@@ -129,3 +129,32 @@ def test_move_device_object_to_cuda(cuda_runtime, cuda):
     assert cuda_runtime.move_device_object(ref.binary(), cuda)
     moved = rmt.get(ref)
     assert moved.is_cuda and torch.equal(moved.cpu(), x)
+
+
+def _gpu_echo_where(xs):
+    import os
+
+    return ([x * 1 for x in xs], os.environ.get("CUDA_VISIBLE_DEVICES"),
+            os.environ.get("RMT_NODE_ID"))
+
+
+def test_gpu_task_on_an_agent_node_round_trips_bit_equal(cuda):
+    """The card leased on a node agent (the head holds no GPU): CUDA
+    tensors go driver → agent worker → driver bit-equal, and the lease
+    is the card the agent's CUDA_VISIBLE_DEVICES names."""
+    torch.cuda.init()
+    rt = rmt.init(num_cpus=2, num_gpus=0)
+    try:
+        agent = rt.add_remote_node_process(num_cpus=2, num_gpus=1)
+        assert rmt.cluster_resources()["GPU"] == 1
+        xs = [_randn(N + 3, cuda, 11), _randn(N + 5, cuda, 12, torch.bfloat16)]
+        ys, visible, node = rmt.get(
+            rmt.remote(_gpu_echo_where).options(num_gpus=1).remote(xs),
+            timeout=300)
+        assert node == agent.hex()
+        assert visible == visible_devices(1)[0]  # the agent inherits ours
+        for x, y in zip(xs, ys):
+            assert y.is_cuda and y.dtype == x.dtype and y.shape == x.shape
+            assert torch.equal(_bits(y), _bits(x))
+    finally:
+        rmt.shutdown()
