@@ -109,6 +109,39 @@ Phases, each of which must pass (any failure exits non-zero):
                 ``ActorDiedError`` and the cluster's GPU total reads 0;
                 after ``rmt.shutdown()`` no ``rmtA_`` segment and no
                 agent, worker or zygote process of the port is left.
+  10. train plane — collectives, parallel strategies and Train on the
+                card: ``rmt.init`` with a 6 GiB shm store (the
+                checkpoint crosses it). (a) A ``num_gpus=1`` actor
+                (``runtime_smoke.CollectiveProbe``, with
+                ``CollectiveGroupMixin``) joins a world-1 ``dist`` group
+                through ``create_collective_group``: NCCL, on the
+                driver's card by UUID with the driver's lease. Every
+                collective (allreduce sum/max/min/product, reducescatter,
+                reduce in f32, bf16 and int8; allgather, broadcast,
+                ppermute) runs on a 4 Mi-element CUDA tensor: f32
+                bit-equal to the plain expectation, bf16 and int8 within
+                the JAX test's envelopes (absmax x 2^-7 and absmax x
+                0.75/127), each quantized call counted once in
+                ``rmt_collective_quantized_ops_total``. (b) ``TorchTrainer``
+                (``ScalingConfig(num_workers=1, use_gpu=True,
+                gpus_per_worker=1, collective_backend="dist")``) runs
+                ``runtime_smoke.train_loop``: ``make_mesh({"dp": 1})`` on
+                cuda, ``param_pspecs``, ``shard_pytree``,
+                ``make_train_step`` with AdamW, 8 steps of gpt2-small at
+                B = 8, S = 1024 from phase 6's seed, launch counts zeroed
+                just before the steps and read just after in the worker.
+                Held: the worker's lease and card are the driver's; NCCL;
+                each kernel launched 12 x 8 times, all wgmma; the losses
+                finite and falling, the first equal to phase 6's to
+                1e-5 relative and the eighth to 1e-3. The loop reports a
+                checkpoint (parameters and AdamW state) at step 4. (c) A
+                second ``fit(resume_from_checkpoint=...)`` runs steps
+                4-7: its losses equal the first run's within the same
+                tolerances. (d) After ``rmt.shutdown()`` no shm segment,
+                worker or zygote of the port is left. Printed: the
+                worker's cold start, step time, tokens/s and MFU beside
+                phase 6's, ``fit()`` wall, the checkpoint's save seconds
+                and bytes, and ``phase_s``.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -1783,6 +1816,233 @@ def phase_multinode(device, serve, gpu_actor, card):
                 detect_s=detect_s, figures=figures)
 
 
+# the step-4 checkpoint (1,946,661,486 bytes on an H100 80GB HBM3 at
+# 700 W, chip call 13) crosses the store twice: 3.9 GB of its 6.4 GB
+TRAIN_PLANE_STORE = 6 << 30
+PROBE_N = 1 << 22             # elements of the collectives' CUDA tensor
+# the JAX package's quantized-allreduce envelopes (tests/test_collective.py
+# :222-223), times absmax and the world size (1 here)
+COLLECTIVE_TOL = {"bf16": 2.0 ** -7, "int8": 0.75 / 127.0}
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _train_plane_collectives(card_lease, card_uuid, gpus):
+    """Phase 10 (a): every collective of a world-1 dist group on the
+    probe actor's card, each beside its plain expectation."""
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch import collective as col
+    from ray_memory_management_tpu_torch.collective.coordinator import (
+        destroy_coordinator)
+    from ray_memory_management_tpu_torch.utils import runtime_smoke
+
+    probe = rmt.remote(num_gpus=gpus)(runtime_smoke.CollectiveProbe).remote()
+    t0 = time.perf_counter()
+    col.create_collective_group([probe], 1, [0], backend="dist",
+                                group_name="train_plane")
+    join_s = time.perf_counter() - t0
+    c = rmt.get(probe.probe.remote("train_plane", PROBE_N), timeout=600)
+    rmt.kill(probe)
+    destroy_coordinator("train_plane")
+    bad = []
+    for row in c["rows"]:
+        p = row["precision"]
+        if p == "f32":
+            ok = row["bit_equal"] and row["counted"] == 0
+        else:
+            ok = (row["max_abs_err"] <= c["absmax"] * COLLECTIVE_TOL[p]
+                  and row["counted"] == 1)
+        if not ok or (gpus and not row["device"].startswith("cuda")):
+            bad.append(row)
+    log(f"[train_plane] collectives: a num_gpus={gpus} actor joined a "
+        f"world-{c['world']} dist group over {c['backend']} in "
+        f"{join_s:.3f} s (lease {c['lease']!r}); {len(c['rows'])} calls on "
+        f"{PROBE_N} elements (absmax {c['absmax']:.4f}): " + "; ".join(
+            f"{r['op']}/{r['reduce']}/{r['precision']} "
+            f"{'bit-equal' if r['bit_equal'] else 'err'} "
+            f"{r['max_abs_err']:.3g} counted {r['counted']:g} "
+            f"{r['ms']:.3f} ms" for r in c["rows"]))
+    if gpus and (c["backend"] != "nccl" or c["lease"] != card_lease
+                 or c["device_uuid"] != card_uuid):
+        raise AssertionError(
+            f"train plane: the collective actor ran over {c['backend']} "
+            f"with lease {c['lease']!r} on {c['device_uuid']}, want nccl, "
+            f"{card_lease!r}, {card_uuid}")
+    if bad:
+        raise AssertionError(f"train plane: collectives off their plain "
+                             f"expectation: {bad}")
+    return dict(join_s=join_s, absmax=c["absmax"], rows=c["rows"],
+                backend=c["backend"])
+
+
+def _train_plane_final(result, tag):
+    if result.error is not None:
+        raise AssertionError(f"train plane: {tag} fit() failed: "
+                             f"{result.error}")
+    finals = [m for m in result.metrics_history if m.get("final")]
+    if len(finals) != 1:
+        raise AssertionError(f"train plane: {tag} reported "
+                             f"{result.metrics_history}")
+    return finals[0]
+
+
+def _check_trainer_launches(final, n_steps, n_layers, tag):
+    want = n_layers * n_steps
+    launches, designs = final["launches"], final["designs"]
+    bwd = final["bwd_designs"]
+    if (any(n != want for n in launches.values())
+            or designs["wgmma"] != want
+            or any(c["wgmma"] != want for c in bwd.values())):
+        raise AssertionError(f"train plane: {tag} launches {launches} "
+                             f"{designs} {bwd}, want {want} of each, all "
+                             f"wgmma")
+
+
+def phase_train_plane(device, train, card, preset="gpt2-small", steps=8,
+                      ckpt_at=4):
+    """Collectives, the parallel library and Train on the card (see the
+    module docstring, phase 10). ``train`` is phase 6's result, whose
+    losses the trainer's must equal."""
+    import math
+    import shutil
+    import tempfile
+
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch.core import metrics_defs as mdefs
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.train import (
+        CheckpointConfig, RunConfig, ScalingConfig, TorchTrainer)
+    from ray_memory_management_tpu_torch.utils import runtime_smoke
+
+    gpus = int(device.type == "cuda")
+    if gpus:
+        import torch
+
+        # the workers need the card's memory that this driver's earlier
+        # phases left in its allocator's cache
+        torch.cuda.empty_cache()
+    n_layers = gpt.PRESETS[preset].n_layers
+    lease, uuid = _driver_card(device)
+    storage = tempfile.mkdtemp(prefix="rmt_train_plane_")
+    t_phase = time.perf_counter()
+    rmt.init(num_cpus=4, object_store_memory=TRAIN_PLANE_STORE)
+    try:
+        coll = _train_plane_collectives(lease, uuid, gpus)
+        config = dict(device=device.type, preset=preset, batch=TRAIN_B,
+                      seq=TRAIN_S, steps=steps, ckpt_at=ckpt_at)
+        scaling = ScalingConfig(num_workers=1, use_gpu=bool(gpus),
+                                gpus_per_worker=gpus,
+                                collective_backend="dist")
+        saves = mdefs.train_checkpoint_save_seconds()
+        before = saves.get(tags={"phase": "drain"})
+        t0 = time.time()
+        r1 = TorchTrainer(
+            runtime_smoke.train_loop, train_loop_config=config,
+            scaling_config=scaling,
+            run_config=RunConfig(name="first", storage_path=storage,
+                                 checkpoint_config=CheckpointConfig(
+                                     mode="sync"))).fit()
+        fit_s = time.time() - t0
+        first = _train_plane_final(r1, "first")
+        cold_s = first["t_loop"] - t0
+        setup_s = first["t_ready"] - first["t_loop"]
+        after = saves.get(tags={"phase": "drain"})
+        save_s = after["sum"] - before["sum"]
+        ckpt_dir = os.path.join(storage, "first", "checkpoint_000000")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(ckpt_dir) for f in fs)
+        losses = first["losses"]
+        log(f"[train_plane] TorchTrainer fit(): {fit_s:.2f} s; the worker's "
+            f"loop started {cold_s:.2f} s after fit() (lease "
+            f"{first['lease']!r}, {first['backend']}), set up its mesh, "
+            f"model and optimizer in {setup_s:.2f} s; {steps} steps, losses "
+            f"{[round(x, 5) for x in losses]} (phase 6: "
+            f"{[round(x, 5) for x in train['losses']]}); step_ms="
+            f"{first['step_ms']:.2f} tokens_per_s={first['tokens_per_s']:.1f}"
+            f" mfu={first['mfu']} (phase 6 step_ms={train['step_ms']:.2f} "
+            f"tokens_per_s={train['tokens_per_s']:.1f} mfu={train['mfu']}); "
+            f"segments {first['segments']}; launches {first['launches']} "
+            f"forward {first['designs']} backward {first['bwd_designs']}; "
+            f"checkpoint at step {ckpt_at}: snapshot "
+            f"{first['snapshot_s']:.2f} s in the worker, durable save "
+            f"{save_s:.2f} s, {ckpt_bytes} bytes; peak_mem="
+            f"{first['peak_mem_gb']} GB")
+        if gpus and (first["lease"] != lease
+                     or first["device_uuid"] != uuid
+                     or first["backend"] != "nccl"):
+            raise AssertionError(
+                f"train plane: the worker ran with lease "
+                f"{first['lease']!r} on {first['device_uuid']} over "
+                f"{first['backend']}, want {lease!r}, {uuid}, nccl")
+        _check_trainer_launches(first, steps, n_layers, "first")
+        if not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"train plane: losses {losses}")
+        ref = train["losses"]
+        if len(losses) != steps or _rel(losses[0], ref[0]) > 1e-5 \
+                or _rel(losses[-1], ref[steps - 1]) > 1e-3:
+            raise AssertionError(f"train plane: losses {losses} against "
+                                 f"phase 6's {ref}")
+        if r1.checkpoint is None or not any(
+                m.get("checkpoint_at") == ckpt_at
+                for m in r1.metrics_history):
+            raise AssertionError("train plane: no checkpoint at step "
+                                 f"{ckpt_at}")
+
+        t0 = time.time()
+        r2 = TorchTrainer(
+            runtime_smoke.train_loop, train_loop_config=config,
+            scaling_config=scaling,
+            run_config=RunConfig(name="resumed", storage_path=storage),
+            resume_from_checkpoint=r1.checkpoint).fit()
+        resume_fit_s = time.time() - t0
+        second = _train_plane_final(r2, "resumed")
+        resumed = second["losses"]
+        log(f"[train_plane] resumed fit(): {resume_fit_s:.2f} s from step "
+            f"{second['start']}; losses {[round(x, 5) for x in resumed]} "
+            f"(first run's steps {ckpt_at}-{steps - 1}: "
+            f"{[round(x, 5) for x in losses[ckpt_at:]]})")
+        _check_trainer_launches(second, steps - ckpt_at, n_layers,
+                                "resumed")
+        tol = [1e-5] + [1e-3] * (steps - ckpt_at - 1)
+        if second["start"] != ckpt_at \
+                or len(resumed) != steps - ckpt_at \
+                or any(_rel(a, b) > t for a, b, t in
+                       zip(resumed, losses[ckpt_at:], tol)):
+            raise AssertionError(f"train plane: resumed losses {resumed} "
+                                 f"against {losses[ckpt_at:]}")
+    finally:
+        rmt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    segs, procs = _leftovers()
+    log(f"[train_plane] after rmt.shutdown(): shm segments {segs}, port "
+        f"agent/worker/zygote processes {procs}")
+    if segs or procs:
+        raise AssertionError(f"train plane: left behind shm {segs} and "
+                             f"processes {procs}")
+    phase_s = time.perf_counter() - t_phase
+    figures = (
+        f"[train_plane] {card}: phase_s={phase_s:.1f} "
+        f"collective_join_s={coll['join_s']:.3f} cold_start_s={cold_s:.2f} "
+        f"setup_s={setup_s:.2f} step_ms={first['step_ms']:.2f} "
+        f"tokens_per_s={first['tokens_per_s']:.1f} mfu={first['mfu']} "
+        f"in_process_step_ms={train['step_ms']:.2f} in_process_tokens_per_s"
+        f"={train['tokens_per_s']:.1f} in_process_mfu={train['mfu']} "
+        f"fit_s={fit_s:.2f} resume_fit_s={resume_fit_s:.2f} "
+        f"ckpt_snapshot_s={first['snapshot_s']:.2f} ckpt_save_s="
+        f"{save_s:.2f} ckpt_bytes={ckpt_bytes} first_loss_rel="
+        f"{_rel(losses[0], train['losses'][0]):.3g} last_loss_rel="
+        f"{_rel(losses[-1], train['losses'][steps - 1]):.3g}")
+    log(figures)
+    return dict(phase_s=phase_s, collectives=coll, cold_start_s=cold_s,
+                setup_s=setup_s, fit_s=fit_s, resume_fit_s=resume_fit_s,
+                save_s=save_s, ckpt_bytes=ckpt_bytes, first=first,
+                resumed=second, launches=first["launches"],
+                figures=figures)
+
+
 def main() -> int:
     import torch
 
@@ -1818,6 +2078,7 @@ def main() -> int:
     runtime = phase_runtime(device, serve, card)
     plane = phase_serve_plane(device, serve, runtime["actor"], card)
     multinode = phase_multinode(device, serve, runtime["actor"], card)
+    train_plane = phase_train_plane(device, train, card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -1828,12 +2089,13 @@ def main() -> int:
         "forward_train_shape": train_fwd, "backward_main": bwd,
         "forward": fwd, "grad": grad, "serve": serve, "train": train,
         "runtime": runtime, "serve_plane": plane,
-        "multinode": multinode}}))
+        "multinode": multinode, "train_plane": train_plane}}))
     # the runtime's, the serve plane's and the multi-node figures again,
     # where the end of the output keeps them
     log(runtime["figures"])
     log(plane["figures"])
     log(multinode["figures"])
+    log(train_plane["figures"])
     src = "ray_memory_management_tpu_torch/csrc/"
     ref = "ray_memory_management_tpu/ops/flash_attention.py:"
     pair = ("SDPA backward, dq, dk and dv together, on the same inputs")
@@ -1880,12 +2142,16 @@ def main() -> int:
         # before, in their own processes)
         "launches_agent_task": multinode["task"]["launches"],
         "launches_agent_actor": multinode["actor"]["launches"],
+        # the train plane: launches in the TorchTrainer worker's 8 steps
+        # (its own process, counts zeroed just before)
+        "launches_trainer": train_plane["launches"]["flash_attention_fwd"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",
         "source": src + "flash_attention_bwd.cu",
         "replaces": ref + "168",
         "launches": train["launches"]["flash_attention_dq"],
+        "launches_trainer": train_plane["launches"]["flash_attention_dq"],
         "max_abs_err": bwd["dq"],
         "ms": bwd["dq_ms"],
         "plain_ms": bwd["dq_plain_ms"],
@@ -1908,6 +2174,7 @@ def main() -> int:
         "source": src + "flash_attention_bwd.cu",
         "replaces": ref + "208",
         "launches": train["launches"]["flash_attention_dkv"],
+        "launches_trainer": train_plane["launches"]["flash_attention_dkv"],
         "max_abs_err": max(bwd["dk"], bwd["dv"]),
         "ms": bwd["dkv_ms"],
         "plain_ms": bwd["dkv_plain_ms"],

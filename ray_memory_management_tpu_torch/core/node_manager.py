@@ -235,8 +235,10 @@ class NodeManager:
         self.store = NodeObjectStore(store_name, config, create=True)
         self.store_name = store_name
         self._on_worker_started = on_worker_started
-        self.free_chips: List[str] = visible_devices(
-            int(resources.total.get(GPU)))
+        # every GPU's device name, leased or free (dist-mode training
+        # partitions them, train/backend_executor.py)
+        self.gpu_names = tuple(visible_devices(int(resources.total.get(GPU))))
+        self.free_chips: List[str] = list(self.gpu_names)
         self._init_pool_state()
 
     def _init_pool_state(self) -> None:

@@ -155,6 +155,7 @@ class RemoteNodeManager(NodeManager):
             raise ValueError(
                 f"node {hostname} declares {total_chips} GPUs but reports "
                 f"{len(names)} device names ({names})")
+        self.gpu_names = tuple(names)
         self.free_chips: List[str] = names
 
         self.channel = channel

@@ -12,7 +12,12 @@ converts leaf for leaf (:mod:`.convert`):
     CUDA kernels, forward and backward, on a CUDA tensor; the plain
     versions on a CPU tensor), "ref" through the plain version.
     "ring"/"ulysses" and the MoE FFN (``n_experts > 0``) belong to later
-    slices and raise.
+    slices and raise;
+  - sharded parameters (DTensors, ``parallel.make_train_step``): the same
+    functions run on DTensors. Attention runs on each rank's LOCAL rows
+    and heads (the kernel never sees a DTensor), the vocab-parallel
+    embedding's partial sums are reduced right after the lookup, and
+    vocab-sharded logits are gathered before the loss.
 
 The KV-cached path (``forward_with_cache`` / ``forward_with_cache_rows``)
 updates the cache tensors IN PLACE and returns the same dict: the JAX
@@ -23,6 +28,7 @@ PyTorch the engine simply owns the tensors it writes.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Dict, Optional, Union
 
 import torch
@@ -172,8 +178,44 @@ def _repeat_kv(t, cfg: TransformerConfig):
     return t.repeat_interleave(cfg.n_heads // cfg.kv_heads, dim=1)
 
 
+def _is_dtensor(t) -> bool:
+    """A DTensor, asked without importing ``torch.distributed.tensor``
+    (no DTensor exists until something imported it)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _replicate_where(t, keep):
+    """``t`` redistributed so that each mesh dim whose placement fails
+    ``keep`` is replicated (a partial sum reduced, a shard gathered)."""
+    from torch.distributed.tensor import Replicate
+
+    placements = [p if keep(p) else Replicate() for p in t.placements]
+    if list(t.placements) == placements:
+        return t
+    return t.redistribute(placements=placements)
+
+
+def _attention_local(q, k, v, cfg: TransformerConfig):
+    """Attention of DTensor q/k/v [B, H, S, Dh] on each rank's local rows
+    (dp/fsdp) and heads (tp, column-parallel wq/wk/wv): a shard of the
+    batch or head dim stays, anything else (sequence, head dim, partial
+    sums) is replicated first. The local tensors go through
+    :func:`_attention`, so the kernel sees plain tensors; kv heads repeat
+    locally, which is right when tp divides the kv heads."""
+    from torch.distributed.tensor import DTensor
+
+    q = _replicate_where(q, lambda p: p.is_shard(0) or p.is_shard(1))
+    k, v = (t.redistribute(placements=q.placements) for t in (k, v))
+    o = _attention(q.to_local(), k.to_local(), v.to_local(), cfg)
+    return DTensor.from_local(o, q.device_mesh, q.placements,
+                              run_check=False)
+
+
 def _attention(q, k, v, cfg: TransformerConfig):
     """Causal attention over [B, H, S, Dh] (kv possibly fewer heads)."""
+    if _is_dtensor(q):
+        return _attention_local(q, k, v, cfg)
     k, v = _repeat_kv(k, cfg), _repeat_kv(v, cfg)
     if cfg.attention == "ref":
         return reference_attention(q, k, v, causal=True)
@@ -238,12 +280,34 @@ def forward_with_aux(params: Params, tokens, cfg: TransformerConfig):
     load-balancing loss of a dense config). With ``cfg.remat`` each block
     is checkpointed (the JAX ``jax.checkpoint`` per block): its
     activations are recomputed in the backward pass instead of kept."""
-    x = params["tok_embed"][tokens].to(cfg.dtype)
+    embed = params["tok_embed"]
+    if _is_dtensor(embed):
+        # a vocab-sharded table (tp's vocab-parallel rows, or fsdp's) is
+        # gathered first: DTensor's masked-partial lookup does not
+        # survive its backward; F.embedding because DTensor has no
+        # sharding rule for index_put (the lookup's backward) in every
+        # torch version
+        x = F.embedding(tokens, _replicate_where(
+            embed, lambda p: not p.is_shard(0)))
+    else:
+        x = embed[tokens]
+    x = x.to(cfg.dtype)
+    # sharded: the activations between blocks keep the batch's layout
+    # (rows over the data axes, whole across tp), as the JAX step
+    # constrains its batch; DTensor may otherwise pick layouts that some
+    # torch versions cannot take through the next block's views
+    layout = tuple(tokens.placements) if _is_dtensor(tokens) else None
+
+    def settle(x):
+        if layout is None or tuple(x.placements) == layout:
+            return x
+        return x.redistribute(placements=layout)
 
     def block(x, layer):
         x, _, moe_aux = apply_block_with_aux(x, layer, cfg)
         return x, moe_aux
 
+    x = settle(x)
     aux = []
     for i in range(cfg.n_layers):
         if cfg.remat:
@@ -251,6 +315,7 @@ def forward_with_aux(params: Params, tokens, cfg: TransformerConfig):
                                     use_reentrant=False)
         else:
             x, moe_aux = block(x, _layer(params, i))
+        x = settle(x)
         aux.append(moe_aux)
     x = _rmsnorm(x, params["final_ln"])
     return _logits(x, params["lm_head"], cfg), torch.stack(aux).mean()
@@ -267,8 +332,15 @@ def loss_fn(params: Params, batch, cfg: TransformerConfig):
     The fused form of the JAX ``loss_fn``: mean(logsumexp(logits) -
     logits[target]), never log_softmax's [B, S, V] residual. MoE configs
     (whose weighted aux term the JAX loss adds) raise in the forward, as
-    the rest of MoE does."""
+    the rest of MoE does. Vocab-sharded DTensor logits (tp's
+    column-parallel ``lm_head``, or partial sums) are gathered over the
+    vocab first, so the loss is this formula on every layout."""
     logits, _ = forward_with_aux(params, batch["tokens"], cfg)
+    if _is_dtensor(logits):
+        # keep the batch shards; gather the vocab and reduce partial sums
+        last = logits.ndim - 1
+        logits = _replicate_where(
+            logits, lambda p: p.is_shard() and not p.is_shard(last))
     lse = torch.logsumexp(logits, dim=-1)
     take = logits.gather(-1, batch["targets"][..., None])[..., 0]
     return (lse - take).mean()

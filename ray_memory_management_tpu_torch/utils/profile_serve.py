@@ -2,6 +2,7 @@
 
     python3 -m ray_memory_management_tpu_torch.utils.profile_serve
     python3 -m ray_memory_management_tpu_torch.utils.profile_serve --mode train
+    python3 -m ray_memory_management_tpu_torch.utils.profile_serve --mode sharded
 
 ``--mode serve`` (the default) builds ``LLMServer`` (gpt2-small, paged
 continuous batching, 8 slots, 32 new tokens), warms it up, then serves
@@ -10,7 +11,12 @@ time users see) and under ``torch.profiler`` with CUDA activity.
 ``--mode train`` takes AdamW steps of gpt2-small at B = 8, S = 1024,
 set up as ``utils/gpu_bench.py`` ``train_step_mfu`` sets it up: two
 warm-up steps, a window of four steps untraced, then the same window
-traced. Both print the device-busy share of the traced wall time, each
+traced. ``--mode sharded`` takes the same steps through the parallel
+library, as ``TorchTrainer``'s worker does in ``chip_smoke.py`` phase
+10: a one-rank NCCL world, ``make_mesh({"dp": 1})``, ``shard_pytree``
+and ``make_train_step`` (dp: plain tensors, DDP's shape). Each prints
+the device-busy share
+of the traced wall time, each
 flash attention kernel's time and share, and the kernels that take the
 most time. Needs a CUDA card.
 """
@@ -103,34 +109,69 @@ def _serve(args, profile, activities):
     return prof, wall_plain, wall_traced
 
 
-def _train(args, profile, activities):
-    device = torch.device("cuda", torch.cuda.current_device())
-    params, opt, batch, cfg = gpu_bench.setup_training(
-        "gpt2-small", 8, 1024, remat=False, attention="flash",
-        device=device)
-
+def _train_windows(step, profile, activities, label):
+    """Two warm-up calls of ``step``, then a window of TRAIN_STEPS calls
+    untraced and the same window traced."""
     def window():
         t0 = time.perf_counter()
         for _ in range(TRAIN_STEPS):
-            gpu_bench.train_step(params, opt, batch, cfg)
+            step()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
     for _ in range(2):  # warm-up
-        gpu_bench.train_step(params, opt, batch, cfg)
+        step()
     torch.cuda.synchronize()
     wall_plain = window()
     reset_launch_count()
     with profile(activities=activities) as prof:
         wall_traced = window()
-    print(f"training: gpt2-small B=8 S=1024 AdamW, {TRAIN_STEPS} steps per "
-          f"window; untraced {wall_plain / TRAIN_STEPS * 1e3:.2f} ms/step")
+    print(f"training{label}: gpt2-small B=8 S=1024 AdamW, {TRAIN_STEPS} "
+          f"steps per window; untraced "
+          f"{wall_plain / TRAIN_STEPS * 1e3:.2f} ms/step")
     return prof, wall_plain, wall_traced
+
+
+def _train(args, profile, activities):
+    device = torch.device("cuda", torch.cuda.current_device())
+    params, opt, batch, cfg = gpu_bench.setup_training(
+        "gpt2-small", 8, 1024, remat=False, attention="flash",
+        device=device)
+    return _train_windows(
+        lambda: gpu_bench.train_step(params, opt, batch, cfg), profile,
+        activities, "")
+
+
+def _sharded(args, profile, activities):
+    import torch.distributed as dist
+
+    from .. import parallel as par
+    from ..collective.collective import init_dist_world, pick_address
+    from ..models import gpt
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    init_dist_world(1, 0, f"tcp://{pick_address()}", "cuda")
+    try:
+        mesh = par.make_mesh({"dp": 1})
+        params, _, batch, cfg = gpu_bench.setup_training(
+            "gpt2-small", 8, 1024, remat=False, attention="flash",
+            device=device)
+        sp = par.shard_pytree(params, mesh,
+                              par.param_pspecs(params, mesh, "dp"))
+        opt = torch.optim.AdamW(list(gpt.param_leaves(sp)),
+                                **gpu_bench.ADAMW)
+        step = par.make_train_step(lambda p, b: gpt.loss_fn(p, b, cfg),
+                                   opt, mesh)
+        return _train_windows(lambda: step(sp, batch), profile, activities,
+                              " over make_train_step, a one-rank mesh")
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=("serve", "train"), default="serve")
+    ap.add_argument("--mode", choices=("serve", "train", "sharded"),
+                    default="serve")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -138,7 +179,7 @@ def main(argv=None) -> int:
         raise SystemExit("profile_serve: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    run = _serve if args.mode == "serve" else _train
+    run = {"serve": _serve, "train": _train, "sharded": _sharded}[args.mode]
     prof, wall_plain, wall_traced = run(
         args, profile, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     launches = {FWD: fwd_design_counts(), **bwd_design_counts()}

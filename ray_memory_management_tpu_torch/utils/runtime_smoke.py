@@ -13,6 +13,7 @@ import os
 import time
 from typing import Any, Dict
 
+from ..collective import CollectiveGroupMixin
 from ..serve.llm import LLMServer
 
 
@@ -103,3 +104,196 @@ class ServedLLM(LLMServer):
                 "node_id": os.environ.get("RMT_NODE_ID"),
                 "cuda_visible_devices":
                     os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+# ------------------------------------------------------------ train plane
+def train_loop(config: Dict[str, Any]) -> None:
+    """``chip_smoke.py`` phase 10's ``TorchTrainer`` loop: ``config``'s
+    preset (gpt2-small on the card) trained through the port's parallel
+    library — ``make_mesh({"dp": world})``, ``param_pspecs(..., "dp")``,
+    ``shard_pytree`` and ``make_train_step`` with AdamW — from
+    ``gpu_bench``'s seed, so its first loss is ``train_step_mfu``'s.
+
+    Steps run as ``train_step_mfu`` times them: warm-up steps, then
+    three timed windows of ``(steps - 1) // 3`` steps, each ending in a
+    synchronise.
+    After step ``ckpt_at - 1`` (between windows) it reports a checkpoint
+    of the parameters and the optimizer state; resumed from it, the loop
+    runs the remaining steps. Launch counts are zeroed just before the
+    first step and read just after the last. The last report holds every
+    step's loss, the windows' times and the worker's lease and card."""
+    import torch
+
+    from .. import parallel as par
+    from ..models import gpt
+    from ..ops.flash_attention import (bwd_design_counts, fwd_design_counts,
+                                       launch_counts, reset_launch_count)
+    from ..train import Checkpoint, session
+    from . import gpu_bench
+
+    t_loop = time.time()
+    device = torch.device(config["device"])
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    world, rank = session.get_world_size(), session.get_world_rank()
+    B, S, steps = config["batch"], config["seq"], config["steps"]
+    mesh = par.make_mesh({"dp": world}, device_type=device.type)
+    params, _, batch, cfg = gpu_bench.setup_training(
+        config["preset"], B, S, False, "flash", device)
+    start, ckpt = 0, session.get_checkpoint()
+    if ckpt is not None:
+        start, tree = ckpt.to_dict()["step"], ckpt.get_pytree()
+        params = _tree_to(tree["params"], device)
+    n_params = gpt.count_params(params)
+    sp = par.shard_pytree(params, mesh, par.param_pspecs(params, mesh, "dp"))
+    del params
+    opt = torch.optim.AdamW(list(gpt.param_leaves(sp)), **gpu_bench.ADAMW)
+    if ckpt is not None:
+        par.load_optimizer_state(opt, tree["opt"])
+    step = par.make_train_step(lambda p, b: gpt.loss_fn(p, b, cfg), opt,
+                               mesh)
+    sync()
+    t_ready = time.time()
+
+    window = (steps - 1) // 3
+    marks = {steps - 3 * window + k * window for k in range(3)}
+    ends = sorted({e for e in marks | {config["ckpt_at"], steps}
+                   if start < e <= steps})
+    reset_launch_count()
+    losses, segments, snapshot_s = [], [], None
+    i = start
+    for end in ends:
+        sync()
+        t0 = time.perf_counter()
+        first = i
+        while i < end:
+            losses.append(step(sp, batch))
+            i += 1
+        sync()
+        segments.append((first, end, time.perf_counter() - t0))
+        if end == config["ckpt_at"] and end < steps:
+            t0 = time.perf_counter()
+            snap = Checkpoint.from_pytree(
+                {"params": sp, "opt": opt.state_dict()},
+                extra={"step": end})
+            snapshot_s = time.perf_counter() - t0
+            session.report({"step": end, "checkpoint_at": end},
+                           checkpoint=snap if rank == 0 else None)
+    counts = (launch_counts(), fwd_design_counts(), bwd_design_counts())
+    losses = torch.stack(losses).tolist()
+    timed = [s for s in segments if s[0] in marks and s[1] - s[0] == window]
+    best = min((s[2] for s in timed), default=None)
+    flops_per_token = 6 * n_params + 6 * cfg.n_layers * S * cfg.d_model
+    # the batch of B rows is the global one: make_train_step shards it
+    tokens_per_s = B * S * window / best if best else None
+    session.report({
+        "final": True, "start": start, "losses": losses,
+        "segments": segments, "window": window,
+        "step_ms": best / window * 1e3 if best else None,
+        "tokens_per_s": tokens_per_s,
+        "mfu": (tokens_per_s * flops_per_token / gpu_bench.PEAK_BF16_H100
+                if on_card and tokens_per_s else None),
+        "n_params": n_params, "launches": counts[0], "designs": counts[1],
+        "bwd_designs": counts[2], "snapshot_s": snapshot_s,
+        "t_loop": t_loop, "t_ready": t_ready,
+        "backend": str(torch.distributed.get_backend()),
+        "lease": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "device_uuid": _device_uuid(device) if on_card else None,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                        if on_card else None),
+    })
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _collective_cases(x):
+    """(op, reduce op, precision, the plain expectation) of every
+    collective at world size 1, where each reduction of one rank is its
+    own tensor (f32: bit-equal; bf16: one rounding; int8: the codec's
+    numpy block quantization of the same tensor)."""
+    import torch
+
+    from ..core import codec
+
+    bf16 = x.to(torch.bfloat16).float()
+    int8 = torch.from_numpy(codec.dequantize_array(codec.quantize_array(
+        x.float().cpu().numpy(), "int8"))).to(x.device)
+    plain = {"f32": x, "bf16": bf16, "int8": int8}
+    cases = []
+    for p in ("f32", "bf16", "int8"):
+        for op in ("sum", "max", "min", "product"):
+            cases.append(("allreduce", op, p, plain[p]))
+        cases.append(("reducescatter", "sum", p, plain[p]))
+        cases.append(("reduce", "sum", p, plain[p]))
+    cases += [("allgather", None, "f32", x[None]),
+              ("broadcast", None, "f32", x),
+              ("ppermute", None, "f32", x)]
+    return cases
+
+
+class CollectiveProbe(CollectiveGroupMixin):
+    """An actor that joins a collective group (the mixin's hook) and runs
+    every collective of it on its card (``chip_smoke.py`` phase 10),
+    each result beside its plain expectation."""
+
+    def probe(self, group_name: str, n: int) -> Dict[str, Any]:
+        import statistics
+
+        import torch
+
+        from .. import collective as col
+        from ..core import metrics_defs as mdefs
+
+        group = col.collective._group_mgr.get(group_name)
+        on_card = group.device_type == "cuda"
+        device = torch.device("cuda", 0) if on_card else torch.device("cpu")
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn(n, generator=gen).to(device)
+        quantized = mdefs.collective_quantized_ops()
+
+        def count(op, p):
+            return quantized.get(tags={"op": op, "precision": p})
+
+        def run(op, red, p):
+            if op == "allreduce":
+                return col.allreduce(x, group_name, red, precision=p)
+            if op == "reducescatter":
+                return col.reducescatter(x, group_name, red, precision=p)
+            if op == "reduce":
+                return col.reduce(x, 0, group_name, red, precision=p)
+            if op == "allgather":
+                return col.allgather(x, group_name)
+            if op == "broadcast":
+                return col.broadcast(x, 0, group_name)
+            return group.ppermute(x, [(0, 0)])
+
+        rows = []
+        for op, red, p, want in _collective_cases(x):
+            before = count(op, p)
+            got = run(op, red, p)
+            sync()
+            counted = count(op, p) - before
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                run(op, red, p)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            rows.append({
+                "op": op, "reduce": red, "precision": p,
+                "device": str(got.device), "shape": list(got.shape),
+                "bit_equal": bool(torch.equal(got, want)),
+                "max_abs_err": float((got.float() - x.float()).abs().max())
+                if got.shape == x.shape else 0.0,
+                "counted": counted,
+                "ms": statistics.median(times)})
+        col.barrier(group_name)
+        return {"rows": rows, "absmax": float(x.abs().max()),
+                "backend": group.backend, "world": group.world_size,
+                "lease": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device_uuid": _device_uuid(device) if on_card else None}

@@ -11,6 +11,8 @@ nothing about what the port needs.
 import ast
 import os
 import re
+import subprocess
+import sys
 
 import pytest
 
@@ -89,7 +91,15 @@ def test_walk_covers_the_port():
                   ("utils", "runtime_smoke.py"), ("core", "node_agent.py"),
                   ("core", "remote_node.py"), ("client", "client.py"),
                   ("client", "server.py"), ("utils", "sim_agent.py"),
-                  ("utils", "chaos.py"), ("usage_stats.py",)):
+                  ("utils", "chaos.py"), ("usage_stats.py",),
+                  ("collective", "collective.py"),
+                  ("collective", "coordinator.py"),
+                  ("collective", "mesh_group.py"),
+                  ("collective", "types.py"), ("parallel", "mesh.py"),
+                  ("parallel", "sharding.py"), ("train", "trainer.py"),
+                  ("train", "backend_executor.py"),
+                  ("train", "checkpoint.py"), ("train", "session.py"),
+                  ("utils", "local_world.py")):
         assert os.path.join("ray_memory_management_tpu_torch",
                             *parts) in names
 
@@ -115,3 +125,19 @@ def test_port_names_no_jax_module_in_strings(path):
            if _names_jax_module(text)]
     assert not bad, "the port names a JAX package module:\n" + \
         "\n".join(bad)
+
+
+@pytest.mark.parametrize("package", ["collective", "parallel", "train"])
+def test_subpackage_imports_without_jax(package):
+    """The collective, parallel and train subpackages import in a fresh
+    interpreter without JAX or the JAX package ever loading."""
+    code = (
+        "import sys\n"
+        f"import ray_memory_management_tpu_torch.{package}\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'ray_memory_management_tpu' "
+        "or m.startswith('ray_memory_management_tpu.'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
