@@ -142,6 +142,22 @@ Phases, each of which must pass (any failure exits non-zero):
                 worker's cold start, step time, tokens/s and MFU beside
                 phase 6's, ``fit()`` wall, the checkpoint's save seconds
                 and bytes, and ``phase_s``.
+  11. moe      — mixtral-tiny at full width (32k vocab, d_model 1024, 8
+                layers, 16 heads of 64 over 4 kv heads, 8 experts top-2,
+                capacity 1.25, groups of 256; random weights from a
+                seed): (a) ``phase_serve``'s burst from a bf16
+                ``LLMServer`` of 8 slots, the MoE FFN on prefill and
+                decode, every forward launch wgmma; (b) ``train_step_mfu``
+                takes 8 AdamW steps at B = 4, S = 2048 (each kernel 8 x 8
+                launches, all wgmma, the loss finite and falling) and one
+                step's gradients are held against ``attention="ref"``
+                by phase 4's rule; (c) the ring's chunk schedule of an
+                sp = 4 run in one process (``ring_schedule``: each rank's
+                query chunk against the K/V chunks in ring order, merged
+                by lse; per-chunk dq and dk/dv from the merged lse) at
+                BH = 64, S = 2048, bf16, causal, through the kernels (10
+                launches of each), against plain attention over the whole
+                sequence.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -287,13 +303,14 @@ def backward_bound(kernel, bh, s, skv, d, causal, dtype_name, itemsize):
     return _bound(nbytes, ops, dtype_name)
 
 
-def bwd_close(got, ref, dtype_name):
-    """(max abs error, worst error over its limit, ok) under BWD_TOL for
-    one backward output; ok iff that ratio is at most 1."""
+def bwd_close(got, ref, dtype_name, scale=1):
+    """(max abs error, worst error over its limit, ok) under ``scale``
+    times BWD_TOL for one backward output; ok iff that ratio is at most
+    1."""
     t = BWD_TOL[dtype_name]
     err = (got.float() - ref).abs()
-    limit = (t["atol"] + t["atol_of_max"] * ref.abs().max()
-             + t["rtol"] * ref.abs())
+    limit = scale * (t["atol"] + t["atol_of_max"] * ref.abs().max()
+                     + t["rtol"] * ref.abs())
     # 0 / 0 counts as 0: an output that is exactly 0 where the bound is 0
     ratio = (err / limit).masked_fill(err == 0, 0.0).max().item()
     return err.max().item(), ratio, bool((err <= limit).all())
@@ -677,13 +694,20 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
     """Full-width gradients of ``loss_fn`` with the kernels vs
     attention="ref". fp32 is held to 1e-3 of each leaf's largest
     gradient; bf16 to twice the plain path's own rounding noise (its
-    distance to the fp32 model), leaf by leaf."""
+    distance to the fp32 model), leaf by leaf. A MoE model's routing is
+    discontinuous: a rounding-sized change of a router input can move a
+    token to another expert, which moves its gradient wholesale. The
+    fp32 kernel run therefore replays the fp32 "ref" run's expert
+    choices, so that the fp32 rule measures the kernels alone; the
+    tokens whose own choice differed are counted and printed. (The bf16
+    rule's floor, bf16 against fp32, holds such moves already.)"""
     import torch
 
     from ray_memory_management_tpu_torch.models import gpt
     from ray_memory_management_tpu_torch.ops.flash_attention import (
         bwd_design_counts, fwd_design_counts, launch_counts,
         reset_launch_count)
+    from ray_memory_management_tpu_torch.ops.moe import pinned_routing
     from ray_memory_management_tpu_torch.utils import gpu_bench
 
     cfg = dataclasses.replace(gpt.PRESETS[preset], attention="flash")
@@ -706,8 +730,11 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
     designs = fwd_design_counts()
     bwd_designs = bwd_design_counts()
     loss_r, gr = grads(dataclasses.replace(cfg, attention="ref"))
-    loss_r32, gr32 = grads(dataclasses.replace(f32, attention="ref"))
-    loss_k32, gk32 = grads(f32)
+    choices, flips = [], []
+    with pinned_routing(record=choices):
+        loss_r32, gr32 = grads(dataclasses.replace(f32, attention="ref"))
+    with pinned_routing(replay=choices, flips=flips):
+        loss_k32, gk32 = grads(f32)
     torch.cuda.synchronize()
     tol32, rows = 1e-3, []
     for name, a, b, c, d in zip(names, gk, gr, gr32, gk32):
@@ -717,6 +744,7 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
                          err32=(d - c).abs().max().item(), scale32=scale,
                          finite=bool(torch.isfinite(a).all()
                                      and torch.isfinite(d).all())))
+    moved = int(sum(flips))
     bf16_ok = all(r["err"] <= 2 * r["floor"] for r in rows)
     fp32_ok = all(r["err32"] <= tol32 * r["scale32"] for r in rows)
     finite = all(r["finite"] for r in rows)
@@ -727,7 +755,10 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
         f"bf16 worst leaf {worst['leaf']} max_abs_err={worst['err']:.3e} "
         f"(limit 2 x bf16 noise floor {worst['floor']:.3e}); fp32 worst "
         f"leaf {worst32['leaf']} max_abs_err={worst32['err32']:.3e} "
-        f"(tol {tol32:g} x max|grad| {worst32['scale32']:.3e}); launches "
+        f"(tol {tol32:g} x max|grad| {worst32['scale32']:.3e}"
+        + (f", routing replayed: {moved} of "
+           f"{sum(c.numel() for c in choices)} fp32 kernel choices differed"
+           if cfg.n_experts else "") + "); launches "
         f"{launches} forward {designs} backward {bwd_designs} (expect "
         f"{cfg.n_layers} each, all wgmma)")
     if not finite:
@@ -744,6 +775,7 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
                              f"each kernel, all wgmma")
     return dict(loss_bf16=loss_k, loss_ref_bf16=loss_r, loss_fp32=loss_k32,
                 loss_ref_fp32=loss_r32, worst_bf16=worst, worst_fp32=worst32,
+                routing_flips_fp32=moved,
                 launches=launches, designs=designs, bwd_designs=bwd_designs)
 
 
@@ -899,10 +931,11 @@ def phase_engine_parity(device, preset="gpt2-small", new_tokens=8):
         raise AssertionError(f"engine tokens {got} != generate {want}")
 
 
-def phase_train(device, steps=8):
+def phase_train(device, steps=8, preset="gpt2-small", batch=TRAIN_B,
+                seq=TRAIN_S):
     """The training main path: ``train_step_mfu`` (gpt2-small, B = 8,
-    S = 1024, AdamW) with the launch counts zeroed just before its steps
-    and read just after."""
+    S = 1024, AdamW, unless told otherwise) with the launch counts zeroed
+    just before its steps and read just after."""
     import math
 
     import torch
@@ -914,17 +947,17 @@ def phase_train(device, steps=8):
     from ray_memory_management_tpu_torch.utils.gpu_bench import (
         train_step_mfu)
 
-    n_layers = gpt.PRESETS["gpt2-small"].n_layers
+    n_layers = gpt.PRESETS[preset].n_layers
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_count()
-    r = train_step_mfu("gpt2-small", batch_size=TRAIN_B, seq_len=TRAIN_S,
-                       steps=steps, device=device)
+    r = train_step_mfu(preset, batch_size=batch, seq_len=seq, steps=steps,
+                       device=device)
     launches = launch_counts()
     designs = fwd_design_counts()
     bwd_designs = bwd_design_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     losses = r["losses"]
-    log(f"[train] gpt2-small B={TRAIN_B} S={TRAIN_S} on {r['device']}: "
+    log(f"[train] {preset} B={batch} S={seq} on {r['device']}: "
         f"{steps} AdamW steps, losses {[round(x, 4) for x in losses]}; "
         f"step_ms={r['step_ms']:.2f} tokens_per_s={r['tokens_per_s']:.1f} "
         f"mfu={r['mfu']:.4f} (PaLM accounting, 989 TFLOP/s peak) "
@@ -2043,6 +2076,113 @@ def phase_train_plane(device, train, card, preset="gpt2-small", steps=8,
                 figures=figures)
 
 
+MOE_PRESET = "mixtral-tiny"   # 8 experts, top-2, GQA 16/4, 32k vocab
+MOE_B, MOE_S = 4, 2048         # the MoE training batch
+RING = 4                       # the sp size whose chunk schedule is held
+
+
+def _ring_schedule_check(device, cfg):
+    """The ring's per-chunk schedule of an sp = ``RING`` run in one
+    process (``ring_attention.ring_schedule``: each rank's query chunk
+    against the K/V chunks in ring order, merged by lse; the backward's
+    dq and dk/dv per chunk from the merged lse; the same per-rank loops,
+    ``ring_forward`` and ``ring_backward``, that sp-ring training runs
+    over rotating chunks) at the MoE training
+    shape, bf16, causal, through the three kernels, held against the
+    plain attention over the whole sequence: the output against
+    ``reference_attention``, and dq, dk and dv against
+    ``reference_flash_bwd`` given that output (as phase 2 gives the
+    backward kernels and their plain version the same o). A row's
+    output, dq, dk and dv are sums of up to ``RING`` chunk terms, each a
+    kernel output rounded once to bf16 (the single kernel's tolerance
+    holds one rounding), so they are held to ``RING`` times the single
+    kernel's tolerance: the output to ``RING x TOL``, dq, dk and dv to
+    ``RING x BWD_TOL``."""
+    import torch
+
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        bwd_design_counts, fwd_design_counts, launch_counts,
+        reference_attention, reference_flash_bwd, reference_lse,
+        reset_launch_count)
+    from ray_memory_management_tpu_torch.ops.ring_attention import (
+        ring_schedule)
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    bh, d = MOE_B * cfg.n_heads, cfg.head_dim
+    q, k, v, do = (torch.randn(bh, MOE_S, d, generator=gen, device=device)
+                   .to(torch.bfloat16) for _ in range(4))
+    reset_launch_count()
+    o, dq, dk, dv = ring_schedule(q, k, v, do, RING, causal=True)
+    _sync(device)
+    launches = launch_counts()
+    designs = fwd_design_counts()
+    bwd_designs = bwd_design_counts()
+    o_ref = reference_attention(q, k, v, True)
+    lse_ref = reference_lse(q, k, True)
+    grads_ref = reference_flash_bwd(q, k, v, o, lse_ref, do, True)
+    o_err = (o.float() - o_ref.float()).abs().max().item()
+    o_tol = RING * TOL["bfloat16"]
+    rows = {name: bwd_close(got, ref.float(), "bfloat16", scale=RING)
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                      grads_ref)}
+    steps = RING * (RING + 1) // 2  # the causal ring's chunks attended
+    log(f"[moe] ring schedule sp={RING} BH={bh} S={MOE_S} D={d} bf16 "
+        f"causal: o max_abs_err={o_err:.3e} (tol {o_tol:g}); "
+        + "; ".join(f"{n} max_abs_err={e:.3e} worst/limit={r:.3f}"
+                    for n, (e, r, _) in rows.items())
+        + f"; launches {launches} forward {designs} backward "
+        f"{bwd_designs} (expect {steps} each, all wgmma)")
+    if not torch.isfinite(o.float()).all() or o_err > o_tol:
+        raise AssertionError("moe: the ring's schedule disagrees with "
+                             "plain attention over the whole sequence")
+    if not all(ok for _, _, ok in rows.values()):
+        raise AssertionError(f"moe: the ring's backward disagrees with "
+                             f"the plain backward: {rows}")
+    if device.type == "cuda" and (
+            any(n != steps for n in launches.values())
+            or designs["wgmma"] != steps
+            or any(c["wgmma"] != steps for c in bwd_designs.values())):
+        raise AssertionError(f"moe: ring launches {launches} {designs} "
+                             f"{bwd_designs}, expected {steps} of each "
+                             f"kernel, all wgmma")
+    return dict(o_err=o_err, launches=launches,
+                **{n: dict(max_abs_err=e, worst_over_limit=r)
+                   for n, (e, r, _) in rows.items()})
+
+
+def phase_moe(device, steps=8):
+    """Phase 11: mixtral-tiny at full width on the card. (a) serve-burst:
+    ``LLMServer`` (bf16, 8 slots, paged) answers ``phase_serve``'s
+    requests through the MoE FFN on prefill and decode, launch counts
+    zeroed around the first burst; (b) ``train_step_mfu`` takes ``steps``
+    AdamW steps at B = 4, S = 2048 (each kernel launched once per layer
+    per step, all wgmma; the loss finite and falling), and one step's
+    gradients are held against ``attention="ref"`` by phase 4's rule;
+    (c) the ring's chunk schedule (sp = 4) through the kernels against
+    plain attention."""
+    import torch
+
+    from ray_memory_management_tpu_torch.models import gpt
+
+    t0 = time.perf_counter()
+    cfg = gpt.PRESETS[MOE_PRESET]
+    serve = phase_serve(device, preset=MOE_PRESET, bursts=2)
+    train = phase_train(device, steps=steps, preset=MOE_PRESET,
+                        batch=MOE_B, seq=MOE_S)
+    grad = phase_grad(device, preset=MOE_PRESET, batch=MOE_B, seq=MOE_S)
+    torch.cuda.empty_cache()
+    ring = _ring_schedule_check(device, cfg)
+    phase_s = time.perf_counter() - t0
+    log(f"[moe] {MOE_PRESET}: n_params={train['n_params']} serve "
+        f"{serve['requests_per_s']:.2f} requests/s "
+        f"{serve['tokens_per_s']:.1f} tokens/s; train step_ms="
+        f"{train['step_ms']:.2f} tokens_per_s={train['tokens_per_s']:.1f} "
+        f"mfu={train['mfu']:.4f} (6N counts every expert) peak_mem="
+        f"{train['peak_mem_gb']:.2f} GB; phase_s={phase_s:.1f}")
+    return dict(serve=serve, train=train, grad=grad, ring=ring,
+                phase_s=phase_s)
+
+
 def main() -> int:
     import torch
 
@@ -2079,6 +2219,7 @@ def main() -> int:
     plane = phase_serve_plane(device, serve, runtime["actor"], card)
     multinode = phase_multinode(device, serve, runtime["actor"], card)
     train_plane = phase_train_plane(device, train, card)
+    moe = phase_moe(device)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -2089,7 +2230,7 @@ def main() -> int:
         "forward_train_shape": train_fwd, "backward_main": bwd,
         "forward": fwd, "grad": grad, "serve": serve, "train": train,
         "runtime": runtime, "serve_plane": plane,
-        "multinode": multinode, "train_plane": train_plane}}))
+        "multinode": multinode, "train_plane": train_plane, "moe": moe}}))
     # the runtime's, the serve plane's and the multi-node figures again,
     # where the end of the output keeps them
     log(runtime["figures"])
@@ -2145,6 +2286,12 @@ def main() -> int:
         # the train plane: launches in the TorchTrainer worker's 8 steps
         # (its own process, counts zeroed just before)
         "launches_trainer": train_plane["launches"]["flash_attention_fwd"],
+        # mixtral-tiny (phase 11): its serve burst, its 8 training steps,
+        # and the sp = 4 ring's chunk schedule
+        "launches_moe_serve": moe["serve"]["launches"],
+        "launches_moe_train": moe["train"]["launches"]["flash_attention_fwd"],
+        "launches_ring_schedule": moe["ring"]["launches"][
+            "flash_attention_fwd"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",
@@ -2152,6 +2299,9 @@ def main() -> int:
         "replaces": ref + "168",
         "launches": train["launches"]["flash_attention_dq"],
         "launches_trainer": train_plane["launches"]["flash_attention_dq"],
+        "launches_moe_train": moe["train"]["launches"]["flash_attention_dq"],
+        "launches_ring_schedule": moe["ring"]["launches"][
+            "flash_attention_dq"],
         "max_abs_err": bwd["dq"],
         "ms": bwd["dq_ms"],
         "plain_ms": bwd["dq_plain_ms"],
@@ -2175,6 +2325,10 @@ def main() -> int:
         "replaces": ref + "208",
         "launches": train["launches"]["flash_attention_dkv"],
         "launches_trainer": train_plane["launches"]["flash_attention_dkv"],
+        "launches_moe_train": moe["train"]["launches"][
+            "flash_attention_dkv"],
+        "launches_ring_schedule": moe["ring"]["launches"][
+            "flash_attention_dkv"],
         "max_abs_err": max(bwd["dk"], bwd["dv"]),
         "ms": bwd["dkv_ms"],
         "plain_ms": bwd["dkv_plain_ms"],

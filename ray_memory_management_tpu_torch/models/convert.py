@@ -4,7 +4,9 @@ The JAX model's parameter tree (nested dicts, layer-stacked ``[L, ...]``
 weights) crosses as numpy arrays: the caller converts each JAX leaf with
 ``np.asarray`` (or hands the arrays of :func:`params_to_numpy` to
 ``jnp.asarray``), so this module never imports JAX. Keys, shapes and
-dtypes are kept both ways.
+dtypes are kept both ways, for every leaf the model has: the MoE
+leaves too (``router`` [L, D, E], ``w1``/``w3`` [L, E, D, F], ``w2``
+[L, E, F, D]).
 """
 
 from __future__ import annotations

@@ -10,9 +10,13 @@ converts leaf for leaf (:mod:`.convert`):
     reductions in fp32, and bf16 rounds where the JAX code rounds;
   - attention: "flash" / "auto" go through ``ops.flash_attention`` (the
     CUDA kernels, forward and backward, on a CUDA tensor; the plain
-    versions on a CPU tensor), "ref" through the plain version.
-    "ring"/"ulysses" and the MoE FFN (``n_experts > 0``) belong to later
-    slices and raise;
+    versions on a CPU tensor), "ref" through the plain version,
+    "ring"/"ulysses" through ``ops.ring_attention`` over the ``sp`` axis
+    of the ``mesh`` passed to the forward (the same kernels per chunk);
+  - the FFN is dense, or the MoE FFN of ``ops/moe.py`` when
+    ``n_experts > 0``: its load-balancing aux is returned by the
+    ``_with_aux`` functions and weighted into ``loss_fn``; expert weights
+    may be each rank's local shard of the ``mesh``'s ep axis;
   - sharded parameters (DTensors, ``parallel.make_train_step``): the same
     functions run on DTensors. Attention runs on each rank's LOCAL rows
     and heads (the kernel never sees a DTensor), the vocab-parallel
@@ -35,7 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import moe
 from ..ops.flash_attention import flash_attention, reference_attention
+from ..ops.ring_attention import ring_attention, ulysses_attention
 from ..utils.device import resolve_device
 
 
@@ -51,10 +57,10 @@ class TransformerConfig:
     rope_theta: float = 10_000.0
     dtype: torch.dtype = torch.bfloat16       # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
-    attention: str = "auto"           # auto|flash|ref (ring|ulysses: later)
+    attention: str = "auto"           # auto|flash|ref|ring|ulysses
     remat: bool = False
     scan_unroll: int = 1
-    n_experts: int = 0                # MoE FFN: a later slice
+    n_experts: int = 0                # MoE FFN (ops/moe.py); 0 = dense
     expert_top_k: int = 2
     expert_capacity_factor: float = 1.25
     expert_group_size: int = 256
@@ -102,13 +108,7 @@ Params = Dict[str, Any]
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE FFN (n_experts > 0): a later slice")
-    if cfg.attention in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention={cfg.attention!r}: sequence-parallel attention is "
-            "a later slice")
-    if cfg.attention not in ("auto", "flash", "ref"):
+    if cfg.attention not in ("auto", "flash", "ref", "ring", "ulysses"):
         raise ValueError(f"unknown attention mode {cfg.attention!r}")
 
 
@@ -140,10 +140,16 @@ def init_params(cfg: TransformerConfig,
         "wk": dense((L, D, Hkv * Dh), D),
         "wv": dense((L, D, Hkv * Dh), D),
         "wo": dense((L, H * Dh, D), H * Dh),
-        "w1": dense((L, D, F_), D),
-        "w3": dense((L, D, F_), D),
-        "w2": dense((L, F_, D), F_),
     }
+    if cfg.n_experts > 0:
+        layers.update(moe.init_moe_params(L, D, F_, cfg.n_experts,
+                                          generator, device, pd))
+    else:
+        layers.update({
+            "w1": dense((L, D, F_), D),
+            "w3": dense((L, D, F_), D),
+            "w2": dense((L, F_, D), F_),
+        })
     return {
         "tok_embed": dense((cfg.vocab_size, D), D),
         "layers": layers,
@@ -212,11 +218,14 @@ def _attention_local(q, k, v, cfg: TransformerConfig):
                               run_check=False)
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
+def _attention(q, k, v, cfg: TransformerConfig, mesh=None, sp_axis=None):
     """Causal attention over [B, H, S, Dh] (kv possibly fewer heads)."""
     if _is_dtensor(q):
         return _attention_local(q, k, v, cfg)
     k, v = _repeat_kv(k, cfg), _repeat_kv(v, cfg)
+    if cfg.attention in ("ring", "ulysses"):
+        fn = ring_attention if cfg.attention == "ring" else ulysses_attention
+        return fn(q, k, v, mesh, axis=sp_axis or "sp", causal=True)
     if cfg.attention == "ref":
         return reference_attention(q, k, v, causal=True)
     return flash_attention(q, k, v, causal=True)
@@ -233,13 +242,16 @@ def _logits(x, lm_head, cfg: TransformerConfig):
 
 
 def apply_block_with_aux(x, layer, cfg: TransformerConfig, attn_fn=None,
-                         positions=None):
+                         positions=None, mesh=None, sp_axis=None,
+                         live=None):
     """One transformer block; returns (x, attn_aux, moe_aux).
 
     ``attn_fn``, if given, replaces the standard attention middle: it
     takes post-rope q/k/v as [B, S, H(kv), Dh] and returns
     (o [B, S, H, Dh], attn_aux); the cached paths use it to read and
-    write their cache."""
+    write their cache. The FFN is dense or MoE per ``cfg.n_experts``;
+    moe_aux is the layer's load-balancing loss (0.0 when dense), and
+    ``live`` [B, S], if given, keeps masked tokens out of MoE routing."""
     _check_supported(cfg)
     B, S = x.shape[0], x.shape[1]
     H, Hkv, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -256,9 +268,12 @@ def apply_block_with_aux(x, layer, cfg: TransformerConfig, attn_fn=None,
         o, attn_aux = attn_fn(q, k, v)
     else:
         o = _attention(q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), cfg).transpose(1, 2)
+                       v.transpose(1, 2), cfg, mesh, sp_axis).transpose(1, 2)
     x = x + o.reshape(B, S, H * Dh) @ layer["wo"].to(cfg.dtype)
     h = _rmsnorm(x, layer["ln2"])
+    if cfg.n_experts > 0:
+        y, moe_aux = moe.moe_ffn(h, layer, cfg, mesh, live)
+        return x + y, attn_aux, moe_aux
     gate = F.silu(h @ layer["w1"].to(cfg.dtype))
     up = h @ layer["w3"].to(cfg.dtype)
     x = x + (gate * up) @ layer["w2"].to(cfg.dtype)
@@ -267,19 +282,23 @@ def apply_block_with_aux(x, layer, cfg: TransformerConfig, attn_fn=None,
 
 
 def apply_block(x, layer, cfg: TransformerConfig, attn_fn=None,
-                positions=None):
+                positions=None, mesh=None, sp_axis=None, live=None):
     """apply_block_with_aux returning x, or (x, attn_aux) with attn_fn."""
-    x, attn_aux, _ = apply_block_with_aux(x, layer, cfg, attn_fn, positions)
+    x, attn_aux, _ = apply_block_with_aux(x, layer, cfg, attn_fn, positions,
+                                          mesh, sp_axis, live)
     if attn_fn is not None:
         return x, attn_aux
     return x
 
 
-def forward_with_aux(params: Params, tokens, cfg: TransformerConfig):
-    """tokens [B, S] -> (logits [B, S, V] fp32, aux scalar: 0.0, the MoE
-    load-balancing loss of a dense config). With ``cfg.remat`` each block
-    is checkpointed (the JAX ``jax.checkpoint`` per block): its
-    activations are recomputed in the backward pass instead of kept."""
+def forward_with_aux(params: Params, tokens, cfg: TransformerConfig,
+                     mesh=None, sp_axis=None):
+    """tokens [B, S] -> (logits [B, S, V] fp32, aux scalar: the mean
+    per-layer MoE load-balancing loss, 0.0 for dense configs). With
+    ``cfg.remat`` each block is checkpointed (the JAX ``jax.checkpoint``
+    per block): its activations are recomputed in the backward pass
+    instead of kept. ``mesh`` (and ``sp_axis``, "sp" by default) serve
+    ring/Ulysses attention and expert weights sharded over ep."""
     embed = params["tok_embed"]
     if _is_dtensor(embed):
         # a vocab-sharded table (tp's vocab-parallel rows, or fsdp's) is
@@ -304,7 +323,8 @@ def forward_with_aux(params: Params, tokens, cfg: TransformerConfig):
         return x.redistribute(placements=layout)
 
     def block(x, layer):
-        x, _, moe_aux = apply_block_with_aux(x, layer, cfg)
+        x, _, moe_aux = apply_block_with_aux(x, layer, cfg, mesh=mesh,
+                                             sp_axis=sp_axis)
         return x, moe_aux
 
     x = settle(x)
@@ -321,21 +341,25 @@ def forward_with_aux(params: Params, tokens, cfg: TransformerConfig):
     return _logits(x, params["lm_head"], cfg), torch.stack(aux).mean()
 
 
-def forward(params: Params, tokens, cfg: TransformerConfig):
+def forward(params: Params, tokens, cfg: TransformerConfig, mesh=None,
+            sp_axis=None):
     """tokens [B, S] -> logits [B, S, V] (fp32)."""
-    return forward_with_aux(params, tokens, cfg)[0]
+    return forward_with_aux(params, tokens, cfg, mesh, sp_axis)[0]
 
 
-def loss_fn(params: Params, batch, cfg: TransformerConfig):
-    """batch: {"tokens": [B, S], "targets": [B, S]} -> mean cross-entropy.
+def loss_fn(params: Params, batch, cfg: TransformerConfig, mesh=None,
+            sp_axis=None):
+    """batch: {"tokens": [B, S], "targets": [B, S]} -> mean cross-entropy
+    (+ the MoE load-balancing aux, weighted by ``moe_aux_weight``, for
+    expert configs).
 
     The fused form of the JAX ``loss_fn``: mean(logsumexp(logits) -
-    logits[target]), never log_softmax's [B, S, V] residual. MoE configs
-    (whose weighted aux term the JAX loss adds) raise in the forward, as
-    the rest of MoE does. Vocab-sharded DTensor logits (tp's
-    column-parallel ``lm_head``, or partial sums) are gathered over the
-    vocab first, so the loss is this formula on every layout."""
-    logits, _ = forward_with_aux(params, batch["tokens"], cfg)
+    logits[target]), never log_softmax's [B, S, V] residual.
+    Vocab-sharded DTensor logits (tp's column-parallel ``lm_head``, or
+    partial sums) are gathered over the vocab first, so the loss is this
+    formula on every layout."""
+    logits, aux = forward_with_aux(params, batch["tokens"], cfg, mesh,
+                                   sp_axis)
     if _is_dtensor(logits):
         # keep the batch shards; gather the vocab and reduce partial sums
         last = logits.ndim - 1
@@ -343,7 +367,10 @@ def loss_fn(params: Params, batch, cfg: TransformerConfig):
             logits, lambda p: p.is_shard() and not p.is_shard(last))
     lse = torch.logsumexp(logits, dim=-1)
     take = logits.gather(-1, batch["targets"][..., None])[..., 0]
-    return (lse - take).mean()
+    xent = (lse - take).mean()
+    if cfg.n_experts > 0:
+        xent = xent + cfg.moe_aux_weight * aux
+    return xent
 
 
 def param_leaves(params: Params):
@@ -426,12 +453,14 @@ def forward_with_cache(params: Params, tokens, cache, offset,
 
 
 def forward_with_cache_rows(params: Params, tokens, cache, offsets,
-                            cfg: TransformerConfig):
+                            cfg: TransformerConfig, live=None):
     """Incremental forward with PER-ROW positions: row ``i`` of ``tokens``
     [B, S] occupies absolute positions [offsets[i], offsets[i]+S) of its
     cache row, attends only to its own history under its own rope phases,
-    and writes the cache in place. Returns (logits [B, S, V] fp32,
-    cache)."""
+    and writes the cache in place. ``live`` [B] (bool), if given, keeps
+    the tokens of rows that are not live out of MoE routing, so idle rows
+    take no expert capacity from live ones. Returns (logits [B, S, V]
+    fp32, cache)."""
     B, S = tokens.shape
     T = cache["k"].shape[3]
     device = tokens.device
@@ -442,6 +471,9 @@ def forward_with_cache_rows(params: Params, tokens, cache, offsets,
     rows = torch.arange(B, device=device)[:, None].expand(B, S)
     mask = (torch.arange(T, device=device)[None, None, :]
             <= positions[:, :, None])                       # [B, S, T]
+    if live is not None:
+        live = torch.as_tensor(live, device=device).reshape(B, 1).expand(
+            B, S)
     x = params["tok_embed"][tokens].to(cfg.dtype)
     for i in range(cfg.n_layers):
         kc, vc = cache["k"][i], cache["v"][i]               # [B, Hkv, T, Dh]
@@ -453,7 +485,7 @@ def forward_with_cache_rows(params: Params, tokens, cache, offsets,
             return o, None
 
         x, _ = apply_block(x, _layer(params, i), cfg, attn_fn=cached_attn,
-                           positions=positions)
+                           positions=positions, live=live)
     x = _rmsnorm(x, params["final_ln"])
     return _logits(x, params["lm_head"], cfg), cache
 

@@ -7,9 +7,11 @@ and maps it once; ``get`` returns a memoryview directly into the mapping.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import mmap
 import os
+import threading
 from typing import List, Optional, Tuple
 
 from .build import lib_path
@@ -62,6 +64,10 @@ class ShmStoreFullError(Exception):
     pass
 
 
+class ShmStoreClosedError(RuntimeError):
+    """A store call on a client whose ``close()`` freed its handle."""
+
+
 def reap_stale_stores(prefix: str) -> None:
     """Unlink /dev/shm segments named ``<prefix><pid>_...`` whose owning
     pid is gone — a SIGKILLed owner cannot unlink its own stores, and
@@ -93,6 +99,14 @@ class ShmStore:
     """One named store; open with ``create=True`` exactly once per store."""
 
     def __init__(self, name: str, capacity: int = 0, create: bool = False):
+        # close() frees the C handle under this lock, and every store call
+        # takes it: a thread still serving a pull while the store closes
+        # gets ShmStoreClosedError, never a call on freed memory. It is
+        # reentrant because ``release`` runs from finalizers, which a GC
+        # pass may fire at any allocation inside a locked section on the
+        # same thread (no C call is in flight there)
+        self._lock = threading.RLock()
+        self._closed = True  # until the handle and the mapping exist
         lib = _load()
         self.name = name
         if create:
@@ -112,8 +126,6 @@ class ShmStore:
             # (plasma pre-touches its mmap the same way). 23 is
             # MADV_POPULATE_WRITE (Linux 5.14+), not yet in the mmap
             # module; unsupported kernels just raise and skip.
-            import threading
-
             def _prefault(m=self._map):
                 try:
                     m.madvise(23)
@@ -150,22 +162,33 @@ class ShmStore:
             pass
         return False
 
+    @contextlib.contextmanager
+    def _open(self):
+        """The native library, with the lock held, on an open store only:
+        ``close()`` cannot free the handle or the mapping meanwhile."""
+        with self._lock:
+            if self._closed:
+                raise ShmStoreClosedError(f"store {self.name} is closed")
+            yield _load()
+
     # -- object lifecycle -----------------------------------------------------
     def create(self, object_id: bytes, size: int) -> memoryview:
         """Allocate; returns a writable view. Seal before readers can get it."""
-        rc = _load().obj_create(self.handle, object_id, size)
+        with self._open() as lib:
+            rc = lib.obj_create(self.handle, object_id, size)
+            if rc > 0:
+                return self._mv[rc : rc + size]
         if rc == 0:
             raise ShmStoreFullError(
                 f"store {self.name} full allocating {size} bytes"
             )
         if rc == -2:
             raise ValueError(f"object {object_id.hex()} already exists")
-        if rc < 0:
-            raise OSError(f"obj_create failed rc={rc}")
-        return self._mv[rc : rc + size]
+        raise OSError(f"obj_create failed rc={rc}")
 
     def seal(self, object_id: bytes) -> None:
-        rc = _load().obj_seal(self.handle, object_id)
+        with self._open() as lib:
+            rc = lib.obj_seal(self.handle, object_id)
         if rc != 0:
             raise OSError(f"seal({object_id.hex()}) failed rc={rc}")
 
@@ -173,56 +196,67 @@ class ShmStore:
         """Zero-copy read view of a sealed object, or None if absent."""
         off = ctypes.c_uint64()
         size = ctypes.c_uint64()
-        rc = _load().obj_get(
-            self.handle, object_id, ctypes.byref(off), ctypes.byref(size),
-            1 if inc_ref else 0,
-        )
-        if rc == -1:
-            return None
-        if rc == -2:
-            return None  # created but unsealed: not visible yet
-        return self._mv[off.value : off.value + size.value]
+        with self._open() as lib:
+            rc = lib.obj_get(
+                self.handle, object_id, ctypes.byref(off), ctypes.byref(size),
+                1 if inc_ref else 0,
+            )
+            if rc == -1:
+                return None
+            if rc == -2:
+                return None  # created but unsealed: not visible yet
+            return self._mv[off.value : off.value + size.value]
 
     def release(self, object_id: bytes) -> None:
-        _load().obj_release(self.handle, object_id)
+        """Drop a reference; a no-op once the store is closed (finalizers
+        and serving threads release after shutdown)."""
+        with self._lock:
+            if not self._closed:
+                _load().obj_release(self.handle, object_id)
 
     def delete(self, object_id: bytes) -> bool:
         """True if freed; False while readers still hold references."""
-        rc = _load().obj_delete(self.handle, object_id)
-        return rc == 0
+        with self._open() as lib:
+            return lib.obj_delete(self.handle, object_id) == 0
 
     def contains(self, object_id: bytes) -> bool:
-        return _load().obj_contains(self.handle, object_id) == 1
+        with self._open() as lib:
+            return lib.obj_contains(self.handle, object_id) == 1
 
     # -- store-level ----------------------------------------------------------
     def usage(self) -> Tuple[int, int, int]:
         used = ctypes.c_uint64()
         cap = ctypes.c_uint64()
         n = ctypes.c_uint64()
-        _load().store_usage(
-            self.handle, ctypes.byref(used), ctypes.byref(cap), ctypes.byref(n)
-        )
+        with self._open() as lib:
+            lib.store_usage(
+                self.handle, ctypes.byref(used), ctypes.byref(cap),
+                ctypes.byref(n)
+            )
         return used.value, cap.value, n.value
 
     def evict_candidates(self, need_bytes: int, max_out: int = 256) -> List[bytes]:
         buf = ctypes.create_string_buffer(16 * max_out)
-        n = _load().evict_candidates(self.handle, need_bytes, buf, max_out)
+        with self._open() as lib:
+            n = lib.evict_candidates(self.handle, need_bytes, buf, max_out)
         return [buf.raw[16 * i : 16 * (i + 1)] for i in range(max(n, 0))]
 
     def close(self) -> None:
-        if self._closed:
-            return
-        self._closed = True
-        try:
-            self._mv.release()
-            self._map.close()
-        except BufferError:
-            # Zero-copy views handed to callers are still alive; the mapping
-            # stays until they are garbage-collected (the reference's client
-            # mmap cache has the same lifetime behavior, plasma/client.cc:240).
-            pass
-        self._file.close()
-        _load().store_close(self.handle)
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            _load().store_close(self.handle)
+            try:
+                self._mv.release()
+                self._map.close()
+            except BufferError:
+                # Zero-copy views handed to callers are still alive; the
+                # mapping stays until they are garbage-collected (the
+                # reference's client mmap cache has the same lifetime
+                # behavior, plasma/client.cc:240).
+                pass
+            self._file.close()
 
     @staticmethod
     def unlink(name: str) -> None:

@@ -7,9 +7,12 @@ collectives. Here the same rules give DTensor placements (one
 anything (fsdp, tp), DTensor's sharding propagation inserts the
 collectives: all-gathers of fsdp-sharded parameters and reduce-scatters
 of their gradients, the Megatron all-reduce pairs of tp. Where every
-parameter is replicated (dp), the step is DDP's: plain tensors and one
-all-reduce of the gradients, which is what XLA makes of that layout,
-without DTensor's dispatch on every op.
+parameter is replicated (dp, sp), the step is DDP's: plain tensors and
+one all-reduce of the gradients over the data axes, which is what XLA
+makes of that layout, without DTensor's dispatch on every op. Expert
+parallelism keeps that shape: the expert weights are each rank's LOCAL
+shard of the ep axis as plain tensors (``ops/moe.py`` runs its experts
+and sums the partial outputs over ep), every other leaf replicated.
 
 Rules are keyed by the TransformerLM parameter names (models/gpt.py) and
 written as the JAX package writes them — a spec is a tuple with a mesh
@@ -145,10 +148,6 @@ def batch_pspec(mesh):
                               tuple(mesh.mesh_dim_names))
 
 
-def _replicated(placements) -> bool:
-    return all(p.is_replicate() for p in placements)
-
-
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -157,14 +156,37 @@ def _leaves(tree):
         yield tree
 
 
-def _mesh_all_reduce(t, mesh, op=None):
+DATA_AXES = ("dp", "fsdp")  # the mesh axes over which the batch is split
+
+
+def _mesh_all_reduce(t, mesh, op=None, dims=None):
     """All-reduce ``t`` in place over every rank of ``mesh`` (one
-    collective per mesh dim)."""
+    collective per mesh dim), or over the mesh dims ``dims`` only."""
     import torch.distributed as dist
 
-    for d in range(mesh.ndim):
+    for d in range(mesh.ndim) if dims is None else dims:
         dist.all_reduce(t, op=op or dist.ReduceOp.SUM,
                         group=mesh.get_group(d))
+
+
+def _data_dims(mesh):
+    """The indices of the mesh's data axes (over which the batch is
+    sharded and replicated gradients are averaged)."""
+    return [d for d, name in enumerate(mesh.mesh_dim_names)
+            if name in DATA_AXES]
+
+
+def _local_shard_dims(placements, mesh):
+    """{mesh dim: tensor dim} of the ep shards in ``placements``, or None
+    when another mesh dim shards (a DTensor layout)."""
+    out = {}
+    for d, p in enumerate(placements):
+        if p.is_replicate():
+            continue
+        if mesh.mesh_dim_names[d] != "ep" or not p.is_shard():
+            return None
+        out[d] = p.dim
+    return out
 
 
 def shard_pytree(tree, mesh, specs) -> Any:
@@ -173,16 +195,19 @@ def shard_pytree(tree, mesh, specs) -> Any:
     shards hold. Floating-point leaves come out trainable
     (``requires_grad``), so an optimizer over them steps them.
 
-    A tree whose every placement is ``Replicate()`` (dp) stays plain
-    tensors, broadcast from rank 0: :func:`make_train_step` then trains
-    it as DDP does, on local tensors with one all-reduce of the
-    gradients. Any other tree becomes DTensors (``distribute_tensor``).
-    Either way the result may alias the input's storage, which an
-    optimizer updates in place: clone the tree first to keep it."""
+    A tree whose every placement is ``Replicate()`` (dp, sp), or
+    ``Shard`` only over the ep axis (expert weights), stays plain
+    tensors, broadcast from rank 0, an ep-sharded leaf cut to this rank's
+    chunk: :func:`make_train_step` then trains it as DDP does, on local
+    tensors with one all-reduce of the gradients over the data axes. Any
+    other tree becomes DTensors (``distribute_tensor``). Either way the
+    result may alias the input's storage, which an optimizer updates in
+    place: clone the tree first to keep it."""
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
 
-    plain = all(_replicated(p) for p in _leaves(specs))
+    plain = all(_local_shard_dims(p, mesh) is not None
+                for p in _leaves(specs))
 
     def put(x, placements):
         x = x.detach()
@@ -193,6 +218,9 @@ def shard_pytree(tree, mesh, specs) -> Any:
                 group = mesh.get_group(d)
                 dist.broadcast(x, src=dist.get_global_rank(group, 0),
                                group=group)
+            for md, td in _local_shard_dims(placements, mesh).items():
+                x = x.chunk(mesh.size(md), dim=td)[
+                    mesh.get_local_rank(md)].clone()
         if x.is_floating_point():
             x.requires_grad_(True)
         return x
@@ -271,9 +299,13 @@ def make_train_step(loss_fn, optimizer, mesh):
     fsdp-sharded parameters over the data axes, as XLA's inserted psums
     do in the JAX step. Plain tensors the model makes on the way
     (positions, rotary tables) count as replicated. Plain parameters
-    (every placement ``Replicate()``, dp) run DDP's shape instead: the
-    forward and backward on this rank's rows as plain tensors, then one
-    all-reduce of the gradients and of the loss (none on one rank)."""
+    (replicated, or ep-local expert shards: dp, sp, ep) run DDP's shape
+    instead: the forward and backward on this rank's rows as plain
+    tensors, then one all-reduce of the gradients and of the loss over
+    the data axes (none where there is no data axis: the sp and ep ranks
+    of one data shard compute the same loss, and ``ops/moe.py`` and
+    ``ops/ring_attention.py`` give each of them the whole gradient of
+    every replicated leaf)."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -282,7 +314,7 @@ def make_train_step(loss_fn, optimizer, mesh):
     plain = not any(isinstance(p, DTensor) for p in leaves)
     n = mesh.size()
     shards = math.prod(size for name, size in mesh_axes(mesh).items()
-                       if name in ("dp", "fsdp"))
+                       if name in DATA_AXES)
 
     def local_rows(x):
         if x.shape[0] % shards:
@@ -299,7 +331,7 @@ def make_train_step(loss_fn, optimizer, mesh):
         loss = loss_fn(params, batch)
         loss.backward()
         loss = loss.detach()
-        if n > 1:
+        if shards > 1:
             _all_reduce_mean(
                 [p.grad for p in leaves if p.grad is not None] + [loss],
                 mesh)
@@ -320,15 +352,17 @@ def make_train_step(loss_fn, optimizer, mesh):
 
 
 def _all_reduce_mean(tensors, mesh) -> None:
-    """Average ``tensors`` in place over the mesh's ranks: one flat
-    all-reduce per dtype, in the same order on every rank."""
+    """Average ``tensors`` in place over the mesh's data axes: one flat
+    all-reduce per dtype and data axis, in the same order on every
+    rank."""
     import torch
 
-    n = mesh.size()
+    dims = _data_dims(mesh)
+    n = math.prod(mesh.size(d) for d in dims)
     for dtype in dict.fromkeys(t.dtype for t in tensors):
         group = [t for t in tensors if t.dtype == dtype]
         flat = torch.cat([t.reshape(-1) for t in group])
-        _mesh_all_reduce(flat, mesh)
+        _mesh_all_reduce(flat, mesh, dims=dims)
         flat /= n
         for t, f in zip(group, flat.split([t.numel() for t in group])):
             t.copy_(f.view_as(t))

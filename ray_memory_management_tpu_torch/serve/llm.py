@@ -346,13 +346,23 @@ class ContinuousBatcher:
     def _decode(self, cache):
         """``steps_per_iter`` single-token steps over every slot, writing
         ``cache`` in place. Returns the sampled tokens [K, B] on the
-        host."""
+        host.
+
+        Every slot decodes, idle ones included, as in the JAX engine; but
+        a MoE config routes only the rows that are live at that step (a
+        request in the slot with budget left): the JAX engine routes all
+        ``max_slots`` rows, so idle and finished slots take expert
+        capacity from live requests and change their tokens."""
         last = torch.tensor(self._slot_last, device=self.device)
         offsets = torch.tensor(self._slot_offset, device=self.device)
+        occupied = np.array([p is not None for p in self._slot_pending])
         toks = []
         for t in range(self.steps_per_iter):
+            live = (torch.from_numpy(occupied & (self._slot_budget > t))
+                    .to(self.device) if self.cfg.n_experts else None)
             logits, cache = gpt.forward_with_cache_rows(
-                self.params, last[:, None], cache, offsets + t, self.cfg)
+                self.params, last[:, None], cache, offsets + t, self.cfg,
+                live=live)
             last = self._sample(logits[:, 0])
             toks.append(last)
         return torch.stack(toks).cpu().numpy()

@@ -3,6 +3,8 @@
     python3 -m ray_memory_management_tpu_torch.utils.profile_serve
     python3 -m ray_memory_management_tpu_torch.utils.profile_serve --mode train
     python3 -m ray_memory_management_tpu_torch.utils.profile_serve --mode sharded
+    python3 -m ray_memory_management_tpu_torch.utils.profile_serve --mode train \\
+        --preset mixtral-tiny --batch 4 --seq 2048
 
 ``--mode serve`` (the default) builds ``LLMServer`` (gpt2-small, paged
 continuous batching, 8 slots, 32 new tokens), warms it up, then serves
@@ -18,7 +20,8 @@ and ``make_train_step`` (dp: plain tensors, DDP's shape). Each prints
 the device-busy share
 of the traced wall time, each
 flash attention kernel's time and share, and the kernels that take the
-most time. Needs a CUDA card.
+most time. ``--preset`` (and for training ``--batch``, ``--seq``) trace
+another model than gpt2-small. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -90,11 +93,11 @@ def kernel_rows(prof):
 
 
 def _serve(args, profile, activities):
-    rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(2, 50_000, size=n).tolist()
-               for n in PROMPT_LENS]
-    srv = LLMServer(preset="gpt2-small", max_batch_size=8,
+    srv = LLMServer(preset=args.preset, max_batch_size=8,
                     max_new_tokens=32, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    vocab = min(50_000, srv.cfg.vocab_size)
+    prompts = [rng.integers(2, vocab, size=n).tolist() for n in PROMPT_LENS]
     try:
         srv({"tokens": [5, 6, 7]})  # warm-up
         wall_plain = _burst(srv, prompts)
@@ -109,7 +112,7 @@ def _serve(args, profile, activities):
     return prof, wall_plain, wall_traced
 
 
-def _train_windows(step, profile, activities, label):
+def _train_windows(args, step, profile, activities, label):
     """Two warm-up calls of ``step``, then a window of TRAIN_STEPS calls
     untraced and the same window traced."""
     def window():
@@ -126,7 +129,8 @@ def _train_windows(step, profile, activities, label):
     reset_launch_count()
     with profile(activities=activities) as prof:
         wall_traced = window()
-    print(f"training{label}: gpt2-small B=8 S=1024 AdamW, {TRAIN_STEPS} "
+    print(f"training{label}: {args.preset} B={args.batch} S={args.seq} "
+          f"AdamW, {TRAIN_STEPS} "
           f"steps per window; untraced "
           f"{wall_plain / TRAIN_STEPS * 1e3:.2f} ms/step")
     return prof, wall_plain, wall_traced
@@ -135,11 +139,11 @@ def _train_windows(step, profile, activities, label):
 def _train(args, profile, activities):
     device = torch.device("cuda", torch.cuda.current_device())
     params, opt, batch, cfg = gpu_bench.setup_training(
-        "gpt2-small", 8, 1024, remat=False, attention="flash",
+        args.preset, args.batch, args.seq, remat=False, attention="flash",
         device=device)
     return _train_windows(
-        lambda: gpu_bench.train_step(params, opt, batch, cfg), profile,
-        activities, "")
+        args, lambda: gpu_bench.train_step(params, opt, batch, cfg),
+        profile, activities, "")
 
 
 def _sharded(args, profile, activities):
@@ -154,15 +158,16 @@ def _sharded(args, profile, activities):
     try:
         mesh = par.make_mesh({"dp": 1})
         params, _, batch, cfg = gpu_bench.setup_training(
-            "gpt2-small", 8, 1024, remat=False, attention="flash",
-            device=device)
+            args.preset, args.batch, args.seq, remat=False,
+            attention="flash", device=device)
         sp = par.shard_pytree(params, mesh,
                               par.param_pspecs(params, mesh, "dp"))
         opt = torch.optim.AdamW(list(gpt.param_leaves(sp)),
                                 **gpu_bench.ADAMW)
         step = par.make_train_step(lambda p, b: gpt.loss_fn(p, b, cfg),
                                    opt, mesh)
-        return _train_windows(lambda: step(sp, batch), profile, activities,
+        return _train_windows(args, lambda: step(sp, batch), profile,
+                              activities,
                               " over make_train_step, a one-rank mesh")
     finally:
         dist.destroy_process_group()
@@ -174,6 +179,9 @@ def main(argv=None) -> int:
                     default="serve")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--preset", default="gpt2-small")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=1024)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: no CUDA device")

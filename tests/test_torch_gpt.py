@@ -157,14 +157,43 @@ def test_greedy_generate_matches_jax(model):
 
 
 def test_later_slices_raise():
-    tp = tgpt.init_params(tgpt.PRESETS["test"], device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    for cfg in (tgpt.PRESETS["test-moe"],
-                dataclasses.replace(tgpt.PRESETS["test"], attention="ring"),
-                dataclasses.replace(tgpt.PRESETS["test"],
-                                    attention="ulysses")):
-        with pytest.raises(NotImplementedError):
-            tgpt.forward(tp, toks, cfg)
+    """The configs of the later slices now run and match the JAX package
+    in fp32: the MoE preset's forward, and ring and Ulysses attention over
+    the sp axis of a one-rank mesh (an in-process gloo group; the JAX side
+    on a one-device mesh). Without a mesh, ring attention raises."""
+    import torch.distributed as dist
+    from jax.sharding import Mesh
+
+    from ray_memory_management_tpu_torch.parallel import cpu_mesh
+
+    toks = _tokens((2, 16), 5)
+    jmoe = dataclasses.replace(jgpt.PRESETS["test-moe"], dtype=jnp.float32)
+    jp = jgpt.init_params(jax.random.PRNGKey(0), jmoe)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    tmoe = dataclasses.replace(tgpt.PRESETS["test-moe"], dtype=torch.float32)
+    np.testing.assert_allclose(
+        _np(tgpt.forward(tp, torch.from_numpy(toks), tmoe)),
+        np.asarray(jgpt.forward(jp, jnp.asarray(toks), jmoe)), **TOL)
+    jcfg, tcfg = _configs(2)
+    jp = jgpt.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    jmesh = Mesh(np.array(jax.devices("cpu")[:1]), ("sp",))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = cpu_mesh({"sp": 1})
+        for mode in ("ring", "ulysses"):
+            want = jgpt.forward(jp, jnp.asarray(toks), dataclasses.replace(
+                jcfg, attention=mode), mesh=jmesh, sp_axis="sp")
+            got = tgpt.forward(tp, torch.from_numpy(toks),
+                               dataclasses.replace(tcfg, attention=mode),
+                               mesh=mesh)
+            np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(ValueError, match="mesh"):
+        tgpt.forward(tp, torch.from_numpy(toks),
+                     dataclasses.replace(tcfg, attention="ring"))
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu():

@@ -201,7 +201,19 @@ def test_params_to_numpy_round_trips_bit_for_bit(model):
 
 
 def test_moe_loss_raises_as_moe_does():
-    cfg = tgpt.PRESETS["test-moe"]
-    with pytest.raises(NotImplementedError):
-        tgpt.loss_fn(tgpt.init_params(tgpt.PRESETS["test"], device="cpu"),
-                     _batch()[1], cfg)
+    """The MoE preset now trains: its loss (cross-entropy plus the
+    weighted load-balancing aux) and every gradient leaf match
+    ``jax.grad`` of the JAX ``loss_fn`` in fp32 (routing decisions equal,
+    so the tolerances of the dense model hold)."""
+    jcfg = dataclasses.replace(jgpt.PRESETS["test-moe"], dtype=jnp.float32)
+    tcfg = dataclasses.replace(tgpt.PRESETS["test-moe"], dtype=torch.float32)
+    jparams = jgpt.init_params(jax.random.PRNGKey(0), jcfg)
+    jb, tb = _batch(seed=4)
+    ref, jgrads = jax.value_and_grad(
+        lambda p: jgpt.loss_fn(p, jb, jcfg))(jparams)
+    loss, params = _port_grads(_port_params(jparams), tb, tcfg)
+    np.testing.assert_allclose(loss.item(), float(ref), **LOSS_TOL)
+    for path, want in _leaves_with_paths(jgrads):
+        np.testing.assert_allclose(_pick(params, path).grad.numpy(),
+                                   np.asarray(want), **GRAD_TOL,
+                                   err_msg=jax.tree_util.keystr(path))
