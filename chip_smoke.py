@@ -158,6 +158,23 @@ Phases, each of which must pass (any failure exits non-zero):
                 BH = 64, S = 2048, bf16, causal, through the kernels (10
                 launches of each), against plain attention over the whole
                 sequence.
+  12. pipeline and vision — (a) GPipe's schedule for gpt2-small at B = 8,
+                S = 1024 over pp = 4 stages of 3 layers with M = 4
+                microbatches, every stage held in this process
+                (``parallel.pipeline_schedule``: the schedule and reverse
+                schedule of the pp ranks, the hand-overs in memory), bf16
+                with the kernels: its loss and every gradient against
+                unpipelined ``gpt.loss_fn`` with the kernels, by phase
+                4's rule (bf16 within twice the bf16 model's own distance
+                to the fp32 model, leaf by leaf; fp32 within 1e-3 of each
+                leaf's largest gradient); launch counts zeroed just before
+                the bf16 pipeline and read just after: 12 x 4 of each
+                kernel, all wgmma. (b) ResNet-50 (SGD(0.1, momentum 0.9))
+                and ViT-S/16 (Adam(1e-3)) train 8 steps each on one
+                synthetic batch of B = 128 images, 224x224, 1000 classes,
+                bf16 compute (``gpu_bench.vision_train_step``): the loss
+                finite and falling, ResNet's BatchNorm running statistics
+                moved; images/s, step time and peak memory printed.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -2183,6 +2200,142 @@ def phase_moe(device, steps=8):
                 phase_s=phase_s)
 
 
+PP_STAGES, PP_MICRO = 4, 4    # gpt2-small's 12 layers in 4 stages of 3
+VISION_B = 128
+
+
+def phase_pipeline(device, preset="gpt2-small", batch=TRAIN_B,
+                   seq=TRAIN_S):
+    """Phase 12a: ``pipeline_schedule`` (pp = ``PP_STAGES``, M =
+    ``PP_MICRO``) against unpipelined ``gpt.loss_fn``, both with the
+    kernels, by phase 4's rule; each kernel launched (L / S) x M times per
+    stage, L x M in all, all wgmma."""
+    import torch
+
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        bwd_design_counts, fwd_design_counts, launch_counts,
+        reset_launch_count)
+    from ray_memory_management_tpu_torch.parallel import pipeline_schedule
+    from ray_memory_management_tpu_torch.utils import gpu_bench
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(gpt.PRESETS[preset], attention="flash")
+    gen = torch.Generator(device=device).manual_seed(3)
+    params = gpt.init_params(cfg, gen, device)
+    data = gpu_bench.make_batch(cfg, batch, seq, gen, device)
+    leaves = [t.requires_grad_() for t in gpt.param_leaves(params)]
+    names = [f"{k}.{n}" if isinstance(v, dict) else k
+             for k, v in params.items()
+             for n in (v if isinstance(v, dict) else [None])]
+
+    def grads(loss_of, c):
+        loss = loss_of(c)
+        out = loss.item(), torch.autograd.grad(loss, leaves)
+        _sync(device)
+        return out
+
+    def piped(c):
+        return pipeline_schedule(params, data, c, PP_STAGES, PP_MICRO)
+
+    def plain(c):
+        return gpt.loss_fn(params, data, c)
+
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    reset_launch_count()
+    t1 = time.perf_counter()
+    loss_p, gp = grads(piped, cfg)
+    pipe_s = time.perf_counter() - t1
+    launches = launch_counts()
+    designs = fwd_design_counts()
+    bwd_designs = bwd_design_counts()
+    loss_u, gu = grads(plain, cfg)
+    warm = {}
+    for name, loss_of in (("pipelined", piped), ("unpipelined", plain),
+                          ("pipelined", piped), ("unpipelined", plain)):
+        t1 = time.perf_counter()
+        grads(loss_of, cfg)
+        warm.setdefault(name, []).append(
+            (time.perf_counter() - t1) * 1e3)
+    loss_p32, gp32 = grads(piped, f32)
+    loss_u32, gu32 = grads(plain, f32)
+    tol32, rows = 1e-3, []
+    for name, a, b, c, d in zip(names, gp, gu, gp32, gu32):
+        rows.append(dict(leaf=name, err=(a - b).abs().max().item(),
+                         floor=(b - d).abs().max().item(),
+                         err32=(c - d).abs().max().item(),
+                         scale32=d.abs().max().item(),
+                         finite=bool(torch.isfinite(a).all()
+                                     and torch.isfinite(c).all())))
+    want = cfg.n_layers * PP_MICRO
+    worst = max(rows, key=lambda r: r["err"] / r["floor"])
+    worst32 = max(rows, key=lambda r: r["err32"] / r["scale32"])
+    phase_s = time.perf_counter() - t0
+    log(f"[pipeline] {preset} B={batch} S={seq} pp={PP_STAGES} "
+        f"M={PP_MICRO} in one process: loss bf16 {loss_p:.5f} (unpipelined "
+        f"{loss_u:.5f}), fp32 {loss_p32:.6f} ({loss_u32:.6f}); bf16 worst "
+        f"leaf {worst['leaf']} max_abs_err={worst['err']:.3e} (limit 2 x "
+        f"bf16 noise floor {worst['floor']:.3e}); fp32 worst leaf "
+        f"{worst32['leaf']} max_abs_err={worst32['err32']:.3e} (tol "
+        f"{tol32:g} x max|grad| {worst32['scale32']:.3e}); launches "
+        f"{launches} forward {designs} backward {bwd_designs} (expect "
+        f"{want} each, all wgmma); bf16 loss+grad {pipe_s * 1e3:.1f} ms "
+        f"(first call), warm in turns pipelined {warm['pipelined']} "
+        f"unpipelined {warm['unpipelined']} ms; phase_s={phase_s:.1f}")
+    if not all(r["finite"] for r in rows):
+        raise AssertionError("pipeline: non-finite gradients")
+    if not (all(r["err"] <= 2 * r["floor"] for r in rows)
+            and all(r["err32"] <= tol32 * r["scale32"] for r in rows)):
+        raise AssertionError(f"pipeline: the pipelined gradients disagree "
+                             f"with the unpipelined ones: {rows}")
+    if (any(n != want for n in launches.values())
+            or designs["wgmma"] != want
+            or any(c["wgmma"] != want for c in bwd_designs.values())):
+        raise AssertionError(f"pipeline: launches {launches} {designs} "
+                             f"{bwd_designs}, expected {want} of each "
+                             f"kernel, all wgmma")
+    return dict(loss_bf16=loss_p, loss_unpipelined_bf16=loss_u,
+                loss_fp32=loss_p32, loss_unpipelined_fp32=loss_u32,
+                worst_bf16=worst, worst_fp32=worst32, launches=launches,
+                designs=designs, bwd_designs=bwd_designs, warm_ms=warm,
+                phase_s=phase_s)
+
+
+def phase_vision(device, card, steps=8):
+    """Phase 12b: ResNet-50 and ViT-S/16 train ``steps`` steps each on one
+    synthetic batch of ``VISION_B`` images (``vision_train_step``)."""
+    import math
+
+    import torch
+
+    from ray_memory_management_tpu_torch.utils.gpu_bench import (
+        vision_train_step)
+
+    out = {}
+    for name in ("resnet50", "vit-s16"):
+        torch.cuda.empty_cache()
+        r = vision_train_step(name, VISION_B, steps, device)
+        losses = r["losses"]
+        log(f"[vision] {name} B={VISION_B} 224x224 bf16 on {card}: "
+            f"{steps} steps, losses {[round(x, 4) for x in losses]}; "
+            f"step_ms={r['step_ms']:.2f} images_per_s="
+            f"{r['images_per_s']:.1f} n_params={r['n_params']} "
+            f"peak_mem={r['peak_mem_gb']:.2f} GB"
+            + (f" BatchNorm statistics moved by up to "
+               f"{r['stats_moved']:.3e}" if r["stats_moved"] is not None
+               else ""))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"vision: {name}: non-finite loss")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"vision: {name}: the loss did not fall: "
+                                 f"{losses}")
+        if name == "resnet50" and not r["stats_moved"] > 0:
+            raise AssertionError("vision: ResNet-50's BatchNorm running "
+                                 "statistics did not move")
+        out[name] = r
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2220,6 +2373,10 @@ def main() -> int:
     multinode = phase_multinode(device, serve, runtime["actor"], card)
     train_plane = phase_train_plane(device, train, card)
     moe = phase_moe(device)
+    torch.cuda.empty_cache()
+    pipeline = phase_pipeline(device)
+    torch.cuda.empty_cache()
+    vision = phase_vision(device, card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -2230,7 +2387,8 @@ def main() -> int:
         "forward_train_shape": train_fwd, "backward_main": bwd,
         "forward": fwd, "grad": grad, "serve": serve, "train": train,
         "runtime": runtime, "serve_plane": plane,
-        "multinode": multinode, "train_plane": train_plane, "moe": moe}}))
+        "multinode": multinode, "train_plane": train_plane, "moe": moe,
+        "pipeline": pipeline, "vision": vision}}))
     # the runtime's, the serve plane's and the multi-node figures again,
     # where the end of the output keeps them
     log(runtime["figures"])
@@ -2292,6 +2450,9 @@ def main() -> int:
         "launches_moe_train": moe["train"]["launches"]["flash_attention_fwd"],
         "launches_ring_schedule": moe["ring"]["launches"][
             "flash_attention_fwd"],
+        # phase 12a: gpt2-small's GPipe schedule, pp = 4, M = 4
+        "launches_pipeline_schedule": pipeline["launches"][
+            "flash_attention_fwd"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",
@@ -2301,6 +2462,8 @@ def main() -> int:
         "launches_trainer": train_plane["launches"]["flash_attention_dq"],
         "launches_moe_train": moe["train"]["launches"]["flash_attention_dq"],
         "launches_ring_schedule": moe["ring"]["launches"][
+            "flash_attention_dq"],
+        "launches_pipeline_schedule": pipeline["launches"][
             "flash_attention_dq"],
         "max_abs_err": bwd["dq"],
         "ms": bwd["dq_ms"],
@@ -2328,6 +2491,8 @@ def main() -> int:
         "launches_moe_train": moe["train"]["launches"][
             "flash_attention_dkv"],
         "launches_ring_schedule": moe["ring"]["launches"][
+            "flash_attention_dkv"],
+        "launches_pipeline_schedule": pipeline["launches"][
             "flash_attention_dkv"],
         "max_abs_err": max(bwd["dk"], bwd["dv"]),
         "ms": bwd["dkv_ms"],

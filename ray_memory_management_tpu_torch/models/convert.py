@@ -6,7 +6,9 @@ weights) crosses as numpy arrays: the caller converts each JAX leaf with
 ``jnp.asarray``), so this module never imports JAX. Keys, shapes and
 dtypes are kept both ways, for every leaf the model has: the MoE
 leaves too (``router`` [L, D, E], ``w1``/``w3`` [L, E, D, F], ``w2``
-[L, E, F, D]).
+[L, E, F, D]). The vision models' flax trees become ``state_dict``s of
+the port's modules (:func:`resnet_state_from_flax`,
+:func:`vit_state_from_flax`).
 """
 
 from __future__ import annotations
@@ -63,3 +65,64 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
         return _to_numpy(node)
 
     return walk(tree)
+
+
+def _flat_state(tree, leaf_fn, prefix=""):
+    """A flax tree's leaves as {dotted port name: tensor}: ``leaf_fn(path,
+    name, array)`` -> (port name, array) for each leaf."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flat_state(v, leaf_fn, path + "."))
+        else:
+            name, a = leaf_fn(prefix, k, np.asarray(v))
+            out[prefix + name] = torch.from_numpy(np.array(a))
+    return out
+
+
+def _conv_or_same(prefix, name, a):
+    """A flax Conv's HWIO ``kernel`` as an OIHW ``weight``; Dense kernels,
+    biases, scales and the statistics as they are."""
+    if name == "kernel" and a.ndim == 4:
+        return "weight", a.transpose(3, 2, 0, 1)
+    if name in ("kernel", "bias", "scale", "mean", "var") and a.ndim <= 2:
+        return name, a
+    raise ValueError(f"no port leaf for the flax leaf {prefix}{name} of "
+                     f"shape {a.shape}")
+
+
+def resnet_state_from_flax(params, batch_stats):
+    """The ``state_dict`` of ``models.resnet.ResNet`` (strict) from a flax
+    ResNet's ``params`` and ``batch_stats`` (numpy arrays, or anything
+    ``np.asarray`` takes): conv kernels HWIO -> OIHW, the statistics into
+    the BatchNorm buffers; a leaf with no port counterpart raises."""
+    state = _flat_state(params, _conv_or_same)
+    state.update(_flat_state(batch_stats, _conv_or_same))
+    return state
+
+
+def _vit_leaf(prefix, name, a):
+    """flax ViT leaves: SelfAttention's DenseGeneral kernels [d, heads,
+    head_dim] / [heads, head_dim, d] and biases [heads, head_dim] as the
+    port's Dense [d, d] and [d]; the embeddings as they are."""
+    if name in ("cls_token", "pos_embed") and a.ndim == 3:
+        return name, a
+    if ".SelfAttention_0." in f".{prefix}":
+        if name == "kernel" and a.ndim == 3:
+            # out: [heads, head_dim, d] -> [d, d]; q/k/v: [d, heads,
+            # head_dim] -> [d, d]
+            return name, (a.reshape(-1, a.shape[-1])
+                          if prefix.endswith(".out.")
+                          else a.reshape(a.shape[0], -1))
+        if name == "bias" and a.ndim in (1, 2):
+            return name, a.reshape(-1)
+    return _conv_or_same(prefix, name, a)
+
+
+def vit_state_from_flax(params):
+    """The ``state_dict`` of ``models.vit.ViT`` (strict) from a flax ViT's
+    ``params``: the patch conv's kernel HWIO -> OIHW, SelfAttention's
+    DenseGeneral kernels flattened to [d, d]; a leaf with no port
+    counterpart raises."""
+    return _flat_state(params, _vit_leaf)

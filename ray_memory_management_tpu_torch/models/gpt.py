@@ -299,6 +299,13 @@ def forward_with_aux(params: Params, tokens, cfg: TransformerConfig,
     per block): its activations are recomputed in the backward pass
     instead of kept. ``mesh`` (and ``sp_axis``, "sp" by default) serve
     ring/Ulysses attention and expert weights sharded over ep."""
+    stacked = next(iter(params["layers"].values())).shape[0]
+    if stacked != cfg.n_layers:
+        raise ValueError(
+            f"the parameter tree holds {stacked} of the {cfg.n_layers} "
+            "layers: a pipeline stage's slice (a pp tree of "
+            "parallel.shard_pytree); run it through "
+            "parallel.pipeline_loss_fn")
     embed = params["tok_embed"]
     if _is_dtensor(embed):
         # a vocab-sharded table (tp's vocab-parallel rows, or fsdp's) is

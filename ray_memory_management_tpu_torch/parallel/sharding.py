@@ -10,9 +10,13 @@ of their gradients, the Megatron all-reduce pairs of tp. Where every
 parameter is replicated (dp, sp), the step is DDP's: plain tensors and
 one all-reduce of the gradients over the data axes, which is what XLA
 makes of that layout, without DTensor's dispatch on every op. Expert
-parallelism keeps that shape: the expert weights are each rank's LOCAL
-shard of the ep axis as plain tensors (``ops/moe.py`` runs its experts
-and sums the partial outputs over ep), every other leaf replicated.
+and pipeline parallelism keep that shape: the expert weights are each
+rank's LOCAL shard of the ep axis and the layer-stacked leaves each
+rank's LOCAL stage of the pp axis, as plain tensors (``ops/moe.py`` runs
+its experts and sums the partial outputs over ep; ``parallel/pipeline.py``
+runs its stage's layers), every other leaf replicated. :func:`shard_pytree`
+records each local shard it cuts, so that a checkpoint gathers it whole
+(:func:`gather_local_shard`).
 
 Rules are keyed by the TransformerLM parameter names (models/gpt.py) and
 written as the JAX package writes them — a spec is a tuple with a mesh
@@ -71,10 +75,15 @@ def param_specs(params: Dict[str, Any], axes: Dict[str, int],
     rule.
 
     strategy: "dp" (replicated params), "fsdp", "tp", "ep", and
-    combinations ("fsdp+tp", "dp+tp", "ep+tp", ...)."""
+    combinations ("fsdp+tp", "dp+tp", "ep+tp", ...). On a mesh with a
+    ``pp`` axis the layer-stacked leaves (``layers/...``) also put their
+    leading dim on pp, whatever the strategy: the JAX
+    ``stacked_param_pspecs`` applied to ``params["layers"]``, as the JAX
+    pipeline tests do."""
     use_tp = "tp" in strategy and "tp" in axes
     use_fsdp = "fsdp" in strategy and "fsdp" in axes
     use_ep = "ep" in strategy and "ep" in axes
+    use_pp = "pp" in axes
     fsdp_size = axes.get("fsdp", 1)
 
     # MoE expert weights ([L, E, ...]): the expert dim shards over ep
@@ -99,6 +108,8 @@ def param_specs(params: Dict[str, Any], axes: Dict[str, int],
             spec = _TP_RULES[name]
             if len(spec) != len(shape):  # non-stacked variant
                 spec = spec[-len(shape):]
+        if use_pp and path.startswith("/layers/"):
+            spec = ("pp",) + tuple(spec[1:])
         if use_fsdp:
             spec = _maybe_add_fsdp(spec, shape, fsdp_size)
         return spec
@@ -157,6 +168,11 @@ def _leaves(tree):
 
 
 DATA_AXES = ("dp", "fsdp")  # the mesh axes over which the batch is split
+LOCAL_AXES = ("ep", "pp")   # the mesh axes whose shards stay plain tensors
+
+# the local shards shard_pytree cut (and the optimizer state that trains
+# them): tensor -> ((process group, tensor dim), ...) in the order cut
+_LOCAL_SHARDS = None
 
 
 def _mesh_all_reduce(t, mesh, op=None, dims=None):
@@ -177,16 +193,90 @@ def _data_dims(mesh):
 
 
 def _local_shard_dims(placements, mesh):
-    """{mesh dim: tensor dim} of the ep shards in ``placements``, or None
-    when another mesh dim shards (a DTensor layout)."""
+    """{mesh dim: tensor dim} of the ep and pp shards in ``placements``,
+    or None when another mesh dim shards (a DTensor layout)."""
     out = {}
     for d, p in enumerate(placements):
         if p.is_replicate():
             continue
-        if mesh.mesh_dim_names[d] != "ep" or not p.is_shard():
+        if mesh.mesh_dim_names[d] not in LOCAL_AXES or not p.is_shard():
             return None
         out[d] = p.dim
     return out
+
+
+def _local_shards():
+    global _LOCAL_SHARDS
+    if _LOCAL_SHARDS is None:
+        from torch.utils.weak import WeakIdKeyDictionary
+
+        _LOCAL_SHARDS = WeakIdKeyDictionary()
+    return _LOCAL_SHARDS
+
+
+def local_shard_cuts(t):
+    """How :func:`shard_pytree` cut the plain tensor ``t`` from its global
+    leaf: ((process group, tensor dim), ...) in the order cut, or None
+    for a tensor it did not cut (a replicated or an unrelated one)."""
+    return _local_shards().get(t)
+
+
+def _record_cuts(t, cuts) -> None:
+    if cuts:
+        _local_shards()[t] = tuple(cuts)
+
+
+def gather_local_shard(t):
+    """The global tensor of which ``t`` is a local ep or pp shard (an
+    all-gather over each axis it was cut along, in rank order), or ``t``
+    itself when it is no such shard. Every rank of the shard's groups
+    must call it, as every rank calls ``DTensor.full_tensor``. Raises
+    when the groups are gone: a shard is never passed off as whole."""
+    import torch
+    import torch.distributed as dist
+
+    cuts = local_shard_cuts(t)
+    if cuts is None:
+        return t
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a local shard of shape {tuple(t.shape)} cannot be gathered: "
+            "its process group is gone")
+    t = t.detach()
+    for group, dim in reversed(cuts):
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        t = torch.cat(parts, dim=dim)
+    return t
+
+
+def _cut(x, cuts):
+    """This rank's chunk of the global ``x`` along each of ``cuts``."""
+    import torch.distributed as dist
+
+    for group, dim in cuts:
+        n = dist.get_world_size(group)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of a leaf of shape "
+                             f"{tuple(x.shape)} does not split over {n} "
+                             "ranks")
+        x = x.chunk(n, dim=dim)[dist.get_rank(group)]
+    return x.clone()
+
+
+def _mark_optimizer_state(optimizer) -> None:
+    """Record the per-parameter optimizer state of each local shard as cut
+    like its parameter (Adam's moments have its shape), so that a
+    checkpoint of ``optimizer.state_dict()`` gathers it whole too."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            cuts = local_shard_cuts(p)
+            if cuts is None:
+                continue
+            for v in optimizer.state.get(p, {}).values():
+                if hasattr(v, "shape") and v.shape == p.shape:
+                    _record_cuts(v, cuts)
 
 
 def shard_pytree(tree, mesh, specs) -> Any:
@@ -196,13 +286,15 @@ def shard_pytree(tree, mesh, specs) -> Any:
     (``requires_grad``), so an optimizer over them steps them.
 
     A tree whose every placement is ``Replicate()`` (dp, sp), or
-    ``Shard`` only over the ep axis (expert weights), stays plain
-    tensors, broadcast from rank 0, an ep-sharded leaf cut to this rank's
-    chunk: :func:`make_train_step` then trains it as DDP does, on local
-    tensors with one all-reduce of the gradients over the data axes. Any
-    other tree becomes DTensors (``distribute_tensor``). Either way the
-    result may alias the input's storage, which an optimizer updates in
-    place: clone the tree first to keep it."""
+    ``Shard`` only over the ep and pp axes (expert weights, pipeline
+    stages), stays plain tensors, broadcast from rank 0, an ep- or
+    pp-sharded leaf cut to this rank's chunk and recorded as such
+    (:func:`local_shard_cuts`; a checkpoint gathers it):
+    :func:`make_train_step` then trains it as DDP does, on local tensors
+    with one all-reduce of the gradients over the data axes. Any other
+    tree becomes DTensors (``distribute_tensor``). Either way the result
+    may alias the input's storage, which an optimizer updates in place:
+    clone the tree first to keep it."""
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
 
@@ -218,9 +310,11 @@ def shard_pytree(tree, mesh, specs) -> Any:
                 group = mesh.get_group(d)
                 dist.broadcast(x, src=dist.get_global_rank(group, 0),
                                group=group)
-            for md, td in _local_shard_dims(placements, mesh).items():
-                x = x.chunk(mesh.size(md), dim=td)[
-                    mesh.get_local_rank(md)].clone()
+            cuts = [(mesh.get_group(md), td) for md, td
+                    in _local_shard_dims(placements, mesh).items()]
+            if cuts:
+                x = _cut(x, cuts)
+                _record_cuts(x, cuts)
         if x.is_floating_point():
             x.requires_grad_(True)
         return x
@@ -302,10 +396,10 @@ def make_train_step(loss_fn, optimizer, mesh):
     (replicated, or ep-local expert shards: dp, sp, ep) run DDP's shape
     instead: the forward and backward on this rank's rows as plain
     tensors, then one all-reduce of the gradients and of the loss over
-    the data axes (none where there is no data axis: the sp and ep ranks
-    of one data shard compute the same loss, and ``ops/moe.py`` and
-    ``ops/ring_attention.py`` give each of them the whole gradient of
-    every replicated leaf)."""
+    the data axes (none where there is no data axis: the sp, ep and pp
+    ranks of one data shard compute the same loss, and ``ops/moe.py``,
+    ``ops/ring_attention.py`` and ``parallel/pipeline.py`` give each of
+    them the whole gradient of every replicated leaf)."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -336,6 +430,7 @@ def make_train_step(loss_fn, optimizer, mesh):
                 [p.grad for p in leaves if p.grad is not None] + [loss],
                 mesh)
         optimizer.step()
+        _mark_optimizer_state(optimizer)
         return loss
 
     def step(params, batch):
@@ -371,20 +466,29 @@ def _all_reduce_mean(tensors, mesh) -> None:
 def load_optimizer_state(optimizer, state) -> None:
     """Load a ``torch.optim`` state dict whose tensors are full CPU tensors
     (``optimizer.state_dict()`` through ``train.Checkpoint.from_pytree``,
-    which gathers DTensors) into ``optimizer`` over sharded parameters:
-    each per-parameter tensor is distributed with its parameter's
-    placements (the step counters stay as they are)."""
+    which gathers DTensors and local shards) into ``optimizer`` over
+    sharded parameters: each per-parameter tensor is distributed with its
+    DTensor parameter's placements, or cut as its local-shard parameter
+    was cut (the step counters stay as they are)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def place(p, k, v):
+        if k == "step":
+            return v
+        if isinstance(p, DTensor) and v.shape == p.shape:
+            return distribute_tensor(v.to(p.device_mesh.device_type),
+                                     p.device_mesh, list(p.placements))
+        cuts = local_shard_cuts(p)
+        if cuts is not None and v.shape != p.shape:
+            return _cut(v, cuts).to(p.device)
+        return v
+
     loaded = {}
     for index, per_param in state["state"].items():
         p = params[int(index)]
-        loaded[index] = {
-            k: (distribute_tensor(v.to(p.device_mesh.device_type),
-                                  p.device_mesh, list(p.placements))
-                if isinstance(p, DTensor) and k != "step"
-                and v.shape == p.shape else v)
-            for k, v in per_param.items()}
+        loaded[index] = {k: place(p, k, v) for k, v in per_param.items()}
     optimizer.load_state_dict({"state": loaded,
                                "param_groups": state["param_groups"]})
+    _mark_optimizer_state(optimizer)

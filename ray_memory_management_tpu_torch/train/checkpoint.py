@@ -277,9 +277,11 @@ class Checkpoint:
         """Checkpoint carrying a tree (nested dicts, lists, tuples) of
         tensors (params/opt state), saved with ``torch.save`` on
         to_directory(). Leaves are taken as CPU tensors: a DTensor is
-        gathered with ``full_tensor()`` — a collective, so every rank of
-        its mesh makes the checkpoint, and rank 0 reports it — and numpy
-        arrays become tensors."""
+        gathered with ``full_tensor()``, and a local ep or pp shard that
+        ``parallel.shard_pytree`` cut (or the optimizer state that trains
+        it) with ``parallel.sharding.gather_local_shard`` — collectives,
+        so every rank of the mesh makes the checkpoint, and rank 0
+        reports it — and numpy arrays become tensors."""
         data = dict(extra or {})
         data[_PYTREE_KEY] = _host_tree(pytree)
         return cls(data=data)
@@ -294,10 +296,13 @@ class Checkpoint:
 
 
 def _host_tree(node):
-    """``node`` with every tensor leaf a CPU tensor (DTensors gathered,
-    numpy arrays converted); other leaves as they are."""
+    """``node`` with every tensor leaf a CPU tensor (DTensors and local
+    shards gathered, numpy arrays converted); other leaves as they
+    are."""
     import numpy as np
     import torch
+
+    from ..parallel.sharding import gather_local_shard
 
     if isinstance(node, dict):
         return {k: _host_tree(v) for k, v in node.items()}
@@ -307,7 +312,7 @@ def _host_tree(node):
         return torch.from_numpy(np.array(node))
     if isinstance(node, torch.Tensor):
         full = getattr(node, "full_tensor", None)  # a DTensor
-        t = full() if full is not None else node
+        t = full() if full is not None else gather_local_shard(node)
         return t.detach().cpu().clone()
     return node
 

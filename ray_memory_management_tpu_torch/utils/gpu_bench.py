@@ -1,10 +1,14 @@
 """Single-card training benchmark: train-step time, tokens/s and model
-FLOPs utilisation of the TransformerLM.
+FLOPs utilisation of the TransformerLM, and images/s of the vision
+models.
 
 Counterpart of ``utils/tpu_bench.py`` ``train_step_mfu`` in the JAX
 package. A step is ``gpt.loss_fn``, ``loss.backward()`` (through the
 flash attention backward kernels on the card) and one
 ``torch.optim.AdamW`` update with optax's ``adamw(3e-4)`` defaults.
+:func:`vision_train_step` times ResNet-50 (SGD(0.1, momentum 0.9), as
+the JAX package's ResNet test trains it) and ViT-S/16 (Adam(1e-3), as
+its ViT test does) on one synthetic batch of 224x224 images.
 """
 
 from __future__ import annotations
@@ -89,26 +93,13 @@ def train_step_mfu(preset: str = "gpt2-small", batch_size: int = 8,
 
     Returns tokens_per_s, step_ms, loss (the last step's), losses (every
     step's), n_params, mfu, steps and device."""
-    if steps < 4:
-        raise ValueError(f"steps must be >= 4 (a warm-up step and three "
-                         f"timed windows), got {steps}")
     device = resolve_device(device)
     params, opt, batch, cfg = setup_training(preset, batch_size, seq_len,
                                              remat, attention, device)
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-
-    window = (steps - 1) // 3
-    losses = [train_step(params, opt, batch, cfg)
-              for _ in range(steps - 3 * window)]
-    sync()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        losses += [train_step(params, opt, batch, cfg)
-                   for _ in range(window)]
-        sync()
-        best = min(best, time.perf_counter() - t0)
+    losses, best, window = _timed_windows(
+        lambda: train_step(params, opt, batch, cfg), steps, sync)
 
     n_params = gpt.count_params(params)
     tokens_per_s = batch_size * seq_len * window / best
@@ -122,6 +113,88 @@ def train_step_mfu(preset: str = "gpt2-small", batch_size: int = 8,
         "n_params": n_params,
         "mfu": (tokens_per_s * flops_per_token / PEAK_BF16_H100
                 if on_card else None),
+        "steps": steps,
+        "device": (torch.cuda.get_device_name(device) if on_card
+                   else str(device)),
+    }
+
+
+VISION_MODELS = ("resnet50", "vit-s16")
+
+
+def _timed_windows(step, steps: int, sync):
+    """``steps`` calls of ``step()``: the first ``steps - 3w`` warm up
+    (w = (steps - 1) // 3), the rest run as three windows of w, each
+    ending in ``sync()``. Returns (every result, the best window's
+    seconds, w)."""
+    if steps < 4:
+        raise ValueError(f"steps must be >= 4 (a warm-up step and three "
+                         f"timed windows), got {steps}")
+    window = (steps - 1) // 3
+    out = [step() for _ in range(steps - 3 * window)]
+    sync()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out += [step() for _ in range(window)]
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    return out, best, window
+
+
+def vision_train_step(model_name: str = "resnet50", batch_size: int = 128,
+                      steps: int = 8,
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> Dict[str, Any]:
+    """Train ``model_name`` ("resnet50" or "vit-s16", bf16 compute, fp32
+    parameters) for exactly ``steps`` steps on one synthetic batch of
+    ``batch_size`` 224x224x3 images and 1000-class labels drawn from
+    :data:`SEED`, timed as ``train_step_mfu`` times (best of three
+    windows after the warm-up). ResNet-50 runs channels-last on the card
+    (the same results, cuDNN's faster layout).
+
+    Returns step_ms, images_per_s, losses (every step's), n_params,
+    stats_moved (the largest change of a BatchNorm running statistic over
+    the steps; None for ViT, which has none), peak_mem_gb (None off the
+    card), steps and device."""
+    from ..models import resnet, vit
+
+    device = resolve_device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    gen = torch.Generator().manual_seed(SEED)
+    images = torch.randn(batch_size, 3, 224, 224, generator=gen)
+    labels = torch.randint(0, 1000, (batch_size,), generator=gen)
+    if model_name == "resnet50":
+        model = resnet.init_resnet(resnet.resnet50(), gen, device)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        make_step = resnet.make_resnet_train_step
+        if on_card:
+            model = model.to(memory_format=torch.channels_last)
+            images = images.contiguous(memory_format=torch.channels_last)
+    elif model_name == "vit-s16":
+        model = vit.init_vit(vit.PRESETS["vit-s16"], gen, device)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        make_step = vit.make_vit_train_step
+    else:
+        raise ValueError(f"unknown vision model {model_name!r}; "
+                         f"one of {VISION_MODELS}")
+    batch = {"image": images.to(device), "label": labels.to(device)}
+    step = make_step(model, opt)
+    stats0 = [b.clone() for b in model.buffers()]
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, best, window = _timed_windows(lambda: step(batch), steps, sync)
+    moved = [(b - b0).abs().max().item()
+             for b, b0 in zip(model.buffers(), stats0)]
+    return {
+        "step_ms": best / window * 1e3,
+        "images_per_s": batch_size * window / best,
+        "losses": torch.stack(losses).tolist(),
+        "n_params": sum(p.numel() for p in model.parameters()),
+        "stats_moved": max(moved) if moved else None,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                        if on_card else None),
         "steps": steps,
         "device": (torch.cuda.get_device_name(device) if on_card
                    else str(device)),

@@ -1,7 +1,10 @@
-"""The parallel strategies across cards: dp, fsdp, tp and fsdp+tp; for a
-MoE preset ep, dp+ep, and sp with ring or Ulysses attention.
+"""The parallel strategies across cards: dp, fsdp, tp and fsdp+tp, and on
+request the GPipe pipeline (pp, dp+pp); for a MoE preset ep, dp+ep, and
+sp with ring or Ulysses attention.
 
     python3 -m ray_memory_management_tpu_torch.utils.strategy_bench
+    python3 -m ray_memory_management_tpu_torch.utils.strategy_bench \\
+        --strategies pp,dp+pp [--dtype float32]
     python3 -m ray_memory_management_tpu_torch.utils.strategy_bench \\
         --preset mixtral-tiny --batch 4 --seq 2048
     python3 -m ray_memory_management_tpu_torch.utils.strategy_bench \\
@@ -13,7 +16,9 @@ weights and batch from ``gpu_bench``'s seed, and for each strategy —
 ``dp`` over all ranks, ``fsdp`` over all ranks, ``tp`` over all ranks
 and ``fsdp+tp`` over half by half; for a MoE preset ``ep`` over all ranks
 (the experts split among them), ``dp+ep`` (2 x half), ``sp-ring`` and
-``sp-ulysses`` over all ranks — shards them with ``param_pspecs`` and
+``sp-ulysses`` over all ranks; ``pp`` over all ranks and ``dp+pp`` (2 x
+half), the block stack in as many stages with as many microbatches
+(``pipeline_loss_fn``) — shards them with ``param_pspecs`` and
 ``shard_pytree`` and takes ``--steps`` AdamW steps through
 ``make_train_step`` (two warm-up steps first, on a copy of the same
 start). Rank 0 first takes the same steps on one device with
@@ -23,10 +28,11 @@ the best step time, tokens/s and every rank's kernel launches by
 design; it fails on a non-finite loss, a distance above the JAX
 package's own 5e-2 between strategies (``tests/test_parallel.py:70``),
 or a rank whose kernels did not launch as often as its attention asks:
-once per layer per step, and under ``sp-ring`` once per K/V chunk rank
-r attends, r + 1 of the causal ring's chunks. The MoE rows' sharding
-changes no arithmetic but the order of sums and roundings, so every loss
-of theirs is held to 1e-3. Routing is discontinuous: a rounding-sized
+once per layer per step, under ``sp-ring`` once per K/V chunk rank r
+attends, r + 1 of the causal ring's chunks, and under a pipeline once
+per layer of its stage and microbatch. The MoE and pipeline rows'
+sharding changes no arithmetic but the order of sums and roundings, so
+every loss of theirs is held to 1e-3. Routing is discontinuous: a rounding-sized
 change of a router input can move a token to another expert, and AdamW
 turns the changed gradient into an lr-sized step. So the reference run
 records its expert choices, rank 0 broadcasts them, and each MoE row's
@@ -45,15 +51,24 @@ import time
 from typing import Any, Dict, List
 
 STRATEGIES = ("dp", "fsdp", "tp", "fsdp+tp")
+PP_STRATEGIES = ("pp", "dp+pp")  # dense presets, on request
 MOE_STRATEGIES = ("ep", "dp+ep", "sp-ring", "sp-ulysses")
 TOL = 5e-2  # the JAX package's dp-against-tp bound
-MOE_TOL = 1e-3
+ORDER_TOL = 1e-3  # rows whose sharding changes only the order of sums
 
 
 def strategies_for(preset: str):
+    """The rows a preset runs by default."""
     from ..models import gpt
 
     return MOE_STRATEGIES if gpt.PRESETS[preset].n_experts else STRATEGIES
+
+
+def strategies_allowed(preset: str):
+    from ..models import gpt
+
+    return (MOE_STRATEGIES if gpt.PRESETS[preset].n_experts
+            else STRATEGIES + PP_STRATEGIES)
 
 
 def strategy_axes(strategy: str, ranks: int) -> Dict[str, int]:
@@ -61,6 +76,8 @@ def strategy_axes(strategy: str, ranks: int) -> Dict[str, int]:
         return {"fsdp": ranks // 2, "tp": 2}
     if strategy == "dp+ep":
         return {"dp": 2, "ep": ranks // 2}
+    if strategy == "dp+pp":
+        return {"dp": 2, "pp": ranks // 2}
     if strategy.startswith("sp-"):
         return {"sp": ranks}
     return {strategy: ranks}
@@ -70,12 +87,21 @@ def _attention(strategy: str) -> str:
     return strategy[3:] if strategy.startswith("sp-") else "flash"
 
 
-def launches_wanted(strategy: str, rank: int, n_layers: int,
-                    steps: int) -> int:
+def microbatches(strategy: str, ranks: int) -> int:
+    """A pipeline row's microbatches: as many as stages (the JAX
+    default); 1 for any other row."""
+    return strategy_axes(strategy, ranks).get("pp", 1)
+
+
+def launches_wanted(strategy: str, rank: int, n_layers: int, steps: int,
+                    ranks: int) -> int:
     """Each kernel's launches on ``rank`` in ``steps`` steps: once per
-    layer and step, the ring's once per chunk attended."""
+    layer and step, the ring's once per chunk attended, a pipeline
+    stage's once per layer of its stage (L/S) and microbatch (M)."""
     per_layer = rank + 1 if strategy == "sp-ring" else 1
-    return per_layer * n_layers * steps
+    stages = strategy_axes(strategy, ranks).get("pp", 1)
+    return (per_layer * n_layers // stages * microbatches(strategy, ranks)
+            * steps)
 
 
 def _setup(args, device, attention: str):
@@ -143,7 +169,17 @@ def _strategy(args, device, strategy: str, choices) -> Dict[str, Any]:
                          device_type=device.type)
 
     rule = "ep" if "ep" in strategy else (
-        "dp" if strategy.startswith("sp-") else strategy)
+        "dp" if strategy.startswith("sp-") or "pp" in strategy
+        else strategy)
+    n_micro = microbatches(strategy, args.ranks)
+    batch_axes = ("dp",) if strategy == "dp+pp" else ()
+
+    def loss_fn(cfg):
+        if "pp" in strategy:
+            return lambda p, b: par.pipeline_loss_fn(
+                p, b, cfg, mesh, n_microbatches=n_micro,
+                batch_axes=batch_axes)
+        return lambda p, b: gpt.loss_fn(p, b, cfg, mesh)
 
     def build():
         params, _, batch, cfg = _setup(args, device, _attention(strategy))
@@ -151,8 +187,7 @@ def _strategy(args, device, strategy: str, choices) -> Dict[str, Any]:
                               par.param_pspecs(params, mesh, rule))
         opt = torch.optim.AdamW(list(gpt.param_leaves(sp)),
                                 **gpu_bench.ADAMW)
-        step = par.make_train_step(
-            lambda p, b: gpt.loss_fn(p, b, cfg, mesh), opt, mesh)
+        step = par.make_train_step(loss_fn(cfg), opt, mesh)
         return sp, batch, step
 
     sp, batch, step = build()  # warm-up on a copy of the start
@@ -205,7 +240,7 @@ def _rank(rank: int, args, init_method: str, queue) -> None:
         torch.distributed.broadcast_object_list(box, src=0)
         out["backend"] = backend
         out["strategies"] = {s: _strategy(args, device, s, box[0])
-                             for s in strategies_for(args.preset)}
+                             for s in args.strategies}
         if args.device == "cuda":
             from .runtime_smoke import _device_uuid
 
@@ -257,7 +292,7 @@ def summarize(args, results) -> Dict[str, Any]:
                                    for r in results.values()} - {None}),
            "strategies": {}}
     bad = []
-    for s in strategies_for(args.preset):
+    for s in args.strategies:
         rows = [results[r]["strategies"][s] for r in range(args.ranks)]
         losses = rows[0]["losses"]
         dist = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
@@ -269,15 +304,18 @@ def summarize(args, results) -> Dict[str, Any]:
             "routing_replayed": rows[0]["routing_replayed"],
             "step_ms": step_ms,
             "tokens_per_s": args.batch * args.seq / step_ms * 1e3,
-            "local_heads": rows[0]["local_heads"], "launches": launches}
+            "local_heads": rows[0]["local_heads"],
+            "microbatches": microbatches(s, args.ranks),
+            "launches": launches}
         launched = all(
             d["fwd"]["wgmma"] + d["fwd"]["simt"] == want
             and all(d[k]["wgmma"] + d[k]["simt"] == want
                     for k in d if k != "fwd")
-            for d, want in ((d, launches_wanted(s, r, n_layers, args.steps))
+            for d, want in ((d, launches_wanted(s, r, n_layers, args.steps,
+                                                args.ranks))
                             for r, d in enumerate(launches))
         ) if args.device == "cuda" else True
-        tol = MOE_TOL if s in MOE_STRATEGIES else TOL
+        tol = TOL if s in STRATEGIES else ORDER_TOL
         if (not all(math.isfinite(x) for x in losses) or dist > tol
                 or any(row["losses"] != losses for row in rows)
                 or not launched):
@@ -296,8 +334,18 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     help="compute dtype (default: the preset's)")
+    ap.add_argument("--strategies",
+                    help="comma-separated rows to run (default: the "
+                    "preset's: dp,fsdp,tp,fsdp+tp, or the MoE rows; a "
+                    "dense preset also takes pp and dp+pp)")
     ap.add_argument("--timeout", type=float, default=900.0)
     args = ap.parse_args(argv)
+    allowed = strategies_allowed(args.preset)
+    args.strategies = (tuple(args.strategies.split(",")) if args.strategies
+                       else strategies_for(args.preset))
+    if not set(args.strategies) <= set(allowed):
+        raise SystemExit(f"strategy_bench: {args.preset} runs "
+                         f"{','.join(allowed)}; asked {args.strategies}")
     if args.device == "cuda":
         import torch
 
@@ -306,8 +354,8 @@ def main(argv=None) -> int:
                              f"{args.ranks} cards, "
                              f"{torch.cuda.device_count()} visible")
     if args.ranks % 2:
-        raise SystemExit("strategy_bench: fsdp+tp and dp+ep need an even "
-                         "rank count")
+        raise SystemExit("strategy_bench: fsdp+tp, dp+ep and dp+pp need an "
+                         "even rank count")
     summary = summarize(args, run(args))
     for s, row in summary["strategies"].items():
         print(f"{s} {row['axes']}: step_ms={row['step_ms']:.2f} "
@@ -315,7 +363,9 @@ def main(argv=None) -> int:
               f"{[round(x, 5) for x in row['losses']]} max_rel_to_reference="
               f"{row['max_rel_to_reference']:.3g} routing_replayed (moved, "
               f"of) {row['routing_replayed']} local_heads="
-              f"{row['local_heads']} launches rank 0 {row['launches'][0]}")
+              f"{row['local_heads']} microbatches={row['microbatches']} "
+              f"forward launches per rank "
+              f"{[sum(d['fwd'].values()) for d in row['launches']]}")
     print(json.dumps(summary))
     if summary["failed"]:
         print(f"strategy_bench: failed {summary['failed']}",

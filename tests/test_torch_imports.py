@@ -99,7 +99,9 @@ def test_walk_covers_the_port():
                   ("parallel", "sharding.py"), ("train", "trainer.py"),
                   ("train", "backend_executor.py"),
                   ("train", "checkpoint.py"), ("train", "session.py"),
-                  ("utils", "local_world.py")):
+                  ("utils", "local_world.py"), ("parallel", "pipeline.py"),
+                  ("models", "layers.py"), ("models", "resnet.py"),
+                  ("models", "vit.py")):
         assert os.path.join("ray_memory_management_tpu_torch",
                             *parts) in names
 

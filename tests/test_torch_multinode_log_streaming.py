@@ -26,15 +26,17 @@ def rmt_start_regular():
     rmt.shutdown()
 
 
-def _wait_for(capfd, needle: str, timeout: float = 30.0) -> str:
-    """Poll captured stderr until ``needle`` shows up (log frames are
-    asynchronous — they can trail the task's done reply)."""
+def _wait_for(capfd, *needles: str, timeout: float = 30.0) -> str:
+    """Poll captured stderr until every one of ``needles`` shows up (log
+    frames are asynchronous — they can trail the task's done reply, and
+    each read of the worker's output pipe travels as its own frame, so
+    one print can arrive before another)."""
     collected = ""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         out, err = capfd.readouterr()
         collected += out + err
-        if needle in collected:
+        if all(needle in collected for needle in needles):
             return collected
         time.sleep(0.1)
     return collected
@@ -48,7 +50,8 @@ def test_task_print_reaches_driver(rmt_start_regular, capfd):
         return 1
 
     assert rmt.get(chatty.remote(), timeout=120) == 1
-    got = _wait_for(capfd, "hello from the worker side")
+    got = _wait_for(capfd, "hello from the worker side",
+                    "stderr travels too")
     assert "hello from the worker side" in got
     assert "stderr travels too" in got
     # the log monitor prefix carries the worker identity
