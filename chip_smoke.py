@@ -175,6 +175,58 @@ Phases, each of which must pass (any failure exits non-zero):
                 bf16 compute (``gpu_bench.vision_train_step``): the loss
                 finite and falling, ResNet's BatchNorm running statistics
                 moved; images/s, step time and peak memory printed.
+  13. data and tune — Data, Tune, Workflow and DAG with the card:
+                ``rmt.init(num_gpus=1)`` with a 1 GiB shm store. (a) 64
+                seeded rows of 1024 tokens go through ``map_batches(
+                runtime_smoke.score_batch, batch_size=8, batch_format=
+                "numpy", compute=ActorPoolStrategy(size=1, num_gpus=1))``:
+                gpt2-small's bf16 forward in the pool actor scores each
+                batch (each row's mean next-token log-probability, fp32,
+                and the argmax after its last position), counting its
+                forward launches from zero just before each batch's
+                forward and reading them just after. Held: 8 batches in
+                one actor on the driver's card by UUID, >= 12 launches a
+                batch, all wgmma; every argmax equal to, and every
+                log-probability within 1e-5 of, the driver's own call of
+                the same function on the same rows; a second
+                ``map_batches`` (a new pool actor) gives the same. (b)
+                ``TorchTrainer(runtime_smoke.data_train_loop,
+                datasets={"train": ds})`` (one GPU worker, ``dist``): ``ds``
+                is 64 seeded rows of 1025 ids split into tokens and
+                targets by ``map_batches``; the worker reads its shard
+                through ``iter_batches(batch_size=8)`` and takes 8 AdamW
+                steps of gpt2-small (phase 6's seed) through
+                ``make_train_step``. Held: the worker's lease and card
+                are the driver's, NCCL, 12 x 8 wgmma launches of each
+                kernel, the losses finite and falling, each within 1e-5
+                relative of the same steps in this process on the same
+                batches in the same order. Printed: the step (median of
+                the last 6, from the end of one step to the end of the
+                next, the wait in ``iter_batches`` included), the wait
+                alone, tokens/s and MFU, beside the in-process loop
+                timed alike and phase 10's worker step. (c)
+                ``Tuner(runtime_smoke.tune_trial, grid lr {1e-4, 3e-4},
+                resources_per_trial={"CPU": 1, "GPU": 1},
+                max_concurrent_trials=1)``: each trial actor leases the
+                card and trains 4 steps from phase 6's seed and batch.
+                Held: both trials TERMINATED with no error, each first
+                loss phase 6's within 1e-5 relative, 12 x 4
+                wgmma launches of each kernel counted in the trial, the
+                lease and card the driver's, ``get_best_result()`` the
+                trial with the lowest last loss. (d) A workflow of two
+                steps: ``step(num_gpus=1)`` runs the forward kernel on
+                seeded q, k, v (BH = 12, S = 992), a CPU step sums each
+                output row in fp32. Held: SUCCESS, the output bit-equal to
+                the driver's own call reduced alike, the first step's
+                stored CUDA output back on the driver's card bit-equal;
+                the same workflow whose second step fails once is FAILED,
+                and ``rerun`` gives the same output with 0 forward
+                launches (the first step comes from storage). A DAG
+                (``InputNode`` -> a ``num_gpus=1`` task over
+                ``runtime_smoke.attend``) gives the driver's output
+                bit-equal, on its card by UUID, one wgmma launch. After
+                ``rmt.shutdown()`` no shm segment, worker or zygote of the
+                port is left.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -2336,6 +2388,453 @@ def phase_vision(device, card, steps=8):
     return out
 
 
+DATA_ROWS = 64                # rows of the inference and training datasets
+DATA_STORE = 1 << 30          # shm for the blocks, batches and step results
+DATA_TOL = 1e-5               # |log-prob| and relative loss tolerance
+DATA_IDS = 1024               # the training rows' ids: a slice of the vocab
+TUNE_STEPS = 4
+
+
+def _data_inference(device, gpus, uuid, preset, seq):
+    """Phase 13 (a): a ``Dataset`` of seeded token rows scored through
+    ``map_batches`` on a one-actor GPU pool, against the driver's own
+    call of the same batch function on the same rows."""
+    import numpy as np
+
+    from ray_memory_management_tpu_torch import data as rd
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.utils import runtime_smoke
+
+    vocab, n_layers = (gpt.PRESETS[preset].vocab_size,
+                       gpt.PRESETS[preset].n_layers)
+    rows = np.random.default_rng(21).integers(0, vocab, (DATA_ROWS, seq))
+    ds = rd.from_numpy(rows)
+    where = None if gpus else "cpu"
+
+    def score():
+        return ds.map_batches(
+            runtime_smoke.score_batch, batch_size=TRAIN_B,
+            batch_format="numpy",
+            compute=rd.ActorPoolStrategy(size=1, num_gpus=gpus),
+            preset=preset, device=where).to_numpy()
+
+    t0 = time.perf_counter()
+    got = score()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = score()
+    second_s = time.perf_counter() - t0
+    batch_s = got["batch_s"][::TRAIN_B]
+    n_batches = len(batch_s)
+    launches = got["launches"][::TRAIN_B]
+    wgmma = got["wgmma"][::TRAIN_B]
+    want = {"logprob": [], "argmax": []}
+    for i in range(0, DATA_ROWS, TRAIN_B):
+        w = runtime_smoke.score_batch(rows[i:i + TRAIN_B], preset=preset,
+                                      device=device)
+        want["logprob"].append(w["logprob"])
+        want["argmax"].append(w["argmax"])
+    want = {k: np.concatenate(v) for k, v in want.items()}
+    runtime_smoke._SCORERS.clear()   # the driver's copy of the model
+    err = float(np.abs(got["logprob"] - want["logprob"]).max())
+    same_argmax = bool((got["argmax"] == want["argmax"]).all())
+    repeat = bool((again["argmax"] == got["argmax"]).all()
+                  and np.abs(again["logprob"] - got["logprob"]).max()
+                  <= DATA_TOL)
+    steady_s = float(batch_s[1:].sum())
+    steady_rows = DATA_ROWS - TRAIN_B
+    r = dict(cold_s=cold_s, second_s=second_s,
+             first_batch_s=float(batch_s[0]),
+             rows_per_s=DATA_ROWS / second_s,
+             tokens_per_s=DATA_ROWS * seq / second_s,
+             steady_rows_per_s=steady_rows / steady_s,
+             steady_tokens_per_s=steady_rows * seq / steady_s,
+             batches=n_batches, launches=int(launches.sum()),
+             launches_per_batch=launches.tolist(),
+             wgmma=int(wgmma.sum()), max_abs_err=err,
+             pids=sorted(set(got["pid"].tolist())),
+             uuids=sorted(set(got["device_uuid"].tolist())))
+    log(f"[data] batch inference: {DATA_ROWS} rows of {seq} tokens through "
+        f"map_batches(batch_size={TRAIN_B}, ActorPoolStrategy(size=1, "
+        f"num_gpus={gpus})): {n_batches} batches in pool actor(s) "
+        f"{r['pids']}, forward launches per batch {r['launches_per_batch']}"
+        f" ({r['wgmma']} wgmma of {r['launches']}); argmax equal to the "
+        f"driver's={same_argmax}, log-prob max_abs_err={err:.3e} (tol "
+        f"{DATA_TOL:g}); a second map equal={repeat}; first map "
+        f"{cold_s:.2f} s, second map {second_s:.2f} s (a new pool actor: "
+        f"the pool lives for one execution) = {r['rows_per_s']:.1f} rows/s "
+        f"{r['tokens_per_s']:.0f} tokens/s; in the actor: first batch "
+        f"{r['first_batch_s']:.2f} s (CUDA init, model draw), batches 2-"
+        f"{n_batches} {r['steady_rows_per_s']:.1f} rows/s "
+        f"{r['steady_tokens_per_s']:.0f} tokens/s")
+    if n_batches != DATA_ROWS // TRAIN_B or not same_argmax \
+            or err > DATA_TOL or not repeat or len(r["pids"]) != 1:
+        raise AssertionError(f"data: batch inference off: {r}")
+    if gpus and (r["uuids"] != [uuid] or r["wgmma"] != r["launches"]
+                 or min(r["launches_per_batch"]) < n_layers):
+        raise AssertionError(f"data: the pool's batches ran on {r['uuids']}"
+                             f" (want {uuid}) with launches "
+                             f"{r['launches_per_batch']}, {r['wgmma']} "
+                             f"wgmma")
+    return r
+
+
+def _data_training(device, gpus, lease, uuid, train_plane, preset, seq,
+                   steps=8):
+    """Phase 13 (b): ``TorchTrainer`` fed by a ``Dataset`` (one GPU
+    worker, ``runtime_smoke.data_train_loop``), against the same loop's
+    arithmetic in this process (``gpu_bench.train_step`` from the same
+    seed on the same numpy batches in the same order)."""
+    import math
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_memory_management_tpu_torch import data as rd
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.train import (
+        RunConfig, ScalingConfig, TorchTrainer)
+    from ray_memory_management_tpu_torch.utils import gpu_bench, runtime_smoke
+
+    n_layers = gpt.PRESETS[preset].n_layers
+    # ids from a slice of the vocabulary: fresh rows every step, and
+    # still something for 8 steps to learn (their unigram statistics)
+    ids = min(DATA_IDS, gpt.PRESETS[preset].vocab_size)
+    rows = np.random.default_rng(22).integers(
+        0, ids, (TRAIN_B * steps, seq + 1))
+    ds = rd.from_numpy(rows).map_batches(runtime_smoke.split_next_token,
+                                         batch_format="numpy")
+    config = dict(device=device.type, preset=preset, batch=TRAIN_B,
+                  seq=seq, dtype="bfloat16")
+    storage = tempfile.mkdtemp(prefix="rmt_data_fed_")
+    t0 = time.time()
+    try:
+        res = TorchTrainer(
+            runtime_smoke.data_train_loop, train_loop_config=config,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=bool(gpus),
+                                         gpus_per_worker=gpus,
+                                         collective_backend="dist"),
+            run_config=RunConfig(name="data_fed", storage_path=storage),
+            datasets={"train": ds}).fit()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    fit_s = time.time() - t0
+    final = _train_plane_final(res, "data-fed")
+    losses = final["losses"]
+
+    params, opt, _, cfg = gpu_bench.setup_training(preset, TRAIN_B, seq,
+                                                   False, "flash", device)
+    want, own_s = [], []
+    _sync(device)
+    t_prev = time.perf_counter()
+    for b in ds.iter_batches(batch_size=TRAIN_B, batch_format="numpy",
+                             drop_last=True):
+        batch = {k: torch.from_numpy(b[k].astype("int64")).to(device)
+                 for k in ("tokens", "targets")}
+        want.append(gpu_bench.train_step(params, opt, batch, cfg))
+        _sync(device)
+        t_now = time.perf_counter()
+        own_s.append(t_now - t_prev)
+        t_prev = t_now
+    want = [float(x) for x in want]
+    del params, opt
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rel = [_rel(a, b) for a, b in zip(losses, want)]
+    tail = slice(2, None)
+    step_ms = statistics.median(final["step_s"][tail]) * 1e3
+    own_ms = statistics.median(own_s[tail]) * 1e3
+    wait_ms = statistics.median(final["wait_s"][tail]) * 1e3
+    tokens_per_s = TRAIN_B * seq / (step_ms / 1e3)
+    mfu = (tokens_per_s * final["flops_per_token"]
+           / gpu_bench.PEAK_BF16_H100 if gpus else None)
+    plane = train_plane["first"] if train_plane else {}
+    r = dict(fit_s=fit_s, cold_start_s=final["t_loop"] - t0,
+             setup_s=final["t_ready"] - final["t_loop"], losses=losses,
+             in_process_losses=want, max_loss_rel=max(rel),
+             step_ms=step_ms, tokens_per_s=tokens_per_s, mfu=mfu,
+             wait_ms=wait_ms, in_process_step_ms=own_ms,
+             step_ms_all=[s * 1e3 for s in final["step_s"]],
+             wait_ms_all=[s * 1e3 for s in final["wait_s"]],
+             launches=final["launches"], designs=final["designs"],
+             bwd_designs=final["bwd_designs"],
+             plane_step_ms=plane.get("step_ms"))
+    log(f"[data] data-fed TorchTrainer: fit() {fit_s:.2f} s, the worker's "
+        f"loop started {r['cold_start_s']:.2f} s after fit() (lease "
+        f"{final['lease']!r}, {final['backend']}), set up in "
+        f"{r['setup_s']:.2f} s; {len(losses)} steps from iter_batches, "
+        f"losses {[round(x, 5) for x in losses]} (in-process "
+        f"{[round(x, 5) for x in want]}, max rel {max(rel):.3g}, tol "
+        f"{DATA_TOL:g}); step ms {[round(x, 2) for x in r['step_ms_all']]}"
+        f" median of the last {steps - 2} {step_ms:.2f} (the in-process "
+        f"loop timed alike {own_ms:.2f}; phase 10's worker "
+        f"{r['plane_step_ms']}); iter_batches wait ms "
+        f"{[round(x, 3) for x in r['wait_ms_all']]} median {wait_ms:.3f}; "
+        f"tokens_per_s={tokens_per_s:.1f} mfu={mfu}; launches "
+        f"{final['launches']} forward {final['designs']} backward "
+        f"{final['bwd_designs']}")
+    if gpus and (final["lease"] != lease or final["device_uuid"] != uuid
+                 or final["backend"] != "nccl"):
+        raise AssertionError(
+            f"data: the worker ran with lease {final['lease']!r} on "
+            f"{final['device_uuid']} over {final['backend']}, want "
+            f"{lease!r}, {uuid}, nccl")
+    if gpus:
+        _check_trainer_launches(final, steps, n_layers, "data-fed")
+    if len(losses) != steps or len(want) != steps \
+            or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0] or max(rel) > DATA_TOL:
+        raise AssertionError(f"data: the data-fed losses {losses} against "
+                             f"the in-process loop's {want}")
+    return r
+
+
+def _tune_trials(device, gpus, lease, uuid, train, preset, seq):
+    """Phase 13 (c): two Tune trials that lease the card, each training
+    ``TUNE_STEPS`` steps from phase 6's seed and batch."""
+    import math
+
+    from ray_memory_management_tpu_torch import tune
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.utils import runtime_smoke
+
+    n_layers = gpt.PRESETS[preset].n_layers
+    lrs = [1e-4, 3e-4]
+    t0 = time.time()
+    grid = tune.Tuner(
+        runtime_smoke.tune_trial,
+        param_space={"lr": tune.grid_search(lrs), "preset": preset,
+                     "batch": TRAIN_B, "seq": seq, "steps": TUNE_STEPS,
+                     "device": None if gpus else "cpu"},
+        resources_per_trial={"CPU": 1, "GPU": gpus} if gpus else {"CPU": 1},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    max_concurrent_trials=1)).fit()
+    fit_s = time.time() - t0
+    if grid.errors or [r.status for r in grid] != ["TERMINATED"] * len(lrs):
+        raise AssertionError(f"tune: trial states "
+                             f"{[r.status for r in grid]}, errors "
+                             f"{grid.errors}")
+    trials, mark = [], t0
+    for res in sorted(grid, key=lambda r: r.metrics["t_start"]):
+        hist = [m for m in res.metrics_history if "loss" in m]
+        last = hist[-1]
+        losses = [m["loss"] for m in hist]
+        want = n_layers * TUNE_STEPS
+        launched = (all(n == want for n in last["launches"].values())
+                    and last["designs"]["wgmma"] == want
+                    and all(c["wgmma"] == want
+                            for c in last["bwd_designs"].values()))
+        t = dict(lr=res.config["lr"], losses=losses,
+                 first_rel=_rel(losses[0], train["losses"][0]),
+                 cold_start_s=last["t_ready"] - mark,
+                 wall_s=last["t_end"] - mark, launches=last["launches"],
+                 designs=last["designs"], bwd_designs=last["bwd_designs"],
+                 lease=last["lease"], device_uuid=last["device_uuid"])
+        mark = last["t_end"]
+        trials.append(t)
+        log(f"[tune] trial lr={t['lr']:g}: losses "
+            f"{[round(x, 5) for x in losses]} (first against phase 6's "
+            f"{train['losses'][0]:.5f}: rel {t['first_rel']:.3g}); cold "
+            f"start {t['cold_start_s']:.2f} s, wall {t['wall_s']:.2f} s; "
+            f"lease {t['lease']!r}; launches {t['launches']} forward "
+            f"{t['designs']} backward {t['bwd_designs']}")
+        if len(losses) != TUNE_STEPS or t["first_rel"] > DATA_TOL \
+                or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"tune: trial lr={t['lr']} losses {losses}")
+        if gpus and (not launched or t["lease"] != lease
+                     or t["device_uuid"] != uuid):
+            raise AssertionError(f"tune: trial lr={t['lr']} ran with lease "
+                                 f"{t['lease']!r} on {t['device_uuid']} "
+                                 f"and launches {t['launches']} "
+                                 f"{t['designs']} {t['bwd_designs']}")
+    best = grid.get_best_result()
+    low = min(trials, key=lambda t: t["losses"][-1])
+    if sorted(t["lr"] for t in trials) != lrs \
+            or best.config["lr"] != low["lr"] \
+            or best.metrics["loss"] != low["losses"][-1]:
+        raise AssertionError(f"tune: best result {best.config} "
+                             f"{best.metrics.get('loss')} against the "
+                             f"trials' last losses {trials}")
+    log(f"[tune] Tuner.fit(): {len(trials)} trials TERMINATED, no errors, "
+        f"in {fit_s:.2f} s; best lr={best.config['lr']:g} loss "
+        f"{best.metrics['loss']:.5f}")
+    return dict(fit_s=fit_s, trials=trials, best_lr=best.config["lr"],
+                launches=trials[0]["launches"])
+
+
+def _workflow_and_dag(device, gpus, lease, uuid):
+    """Phase 13 (d): a two-step workflow whose first step runs the
+    forward kernel on the card, resumed once after its second step
+    failed; and a DAG over a GPU task."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch import workflow
+    from ray_memory_management_tpu_torch.dag import InputNode
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        flash_attention)
+    from ray_memory_management_tpu_torch.utils import runtime_smoke
+    from ray_memory_management_tpu_torch.workflow.storage import (
+        WorkflowStorage)
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    q, k, v = (torch.randn(BH, MAIN_CASE[1], HEAD_DIM, device=device,
+                           generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    with torch.inference_mode():
+        want = flash_attention(q, k, v, causal=True)
+    want_sums = want.cpu().float().sum(-1)
+    base = tempfile.mkdtemp(prefix="rmt_workflow_")
+    old = workflow.get_storage()
+    workflow.set_storage(base)
+    log_path, marker = f"{base}/attend.log", f"{base}/failed_once"
+
+    def runs():
+        with open(log_path) as f:
+            return [int(line.split()[1]) for line in f]
+
+    try:
+        attend = workflow.step(num_gpus=gpus)(runtime_smoke.attend_step)
+        reduce = workflow.step(max_retries=0)(runtime_smoke.row_sums)
+        first = attend.step(q, k, v, log_path)
+        t0 = time.perf_counter()
+        out = workflow.run(reduce.step(first), workflow_id="attend")
+        run_s = time.perf_counter() - t0
+        stored = WorkflowStorage("attend").load_step_result(
+            first.step_id({}))
+        status = workflow.get_status("attend")
+        dag = reduce.step(attend.step(q, k, v, log_path), marker)
+        failed = None
+        try:
+            workflow.run(dag, workflow_id="resumed")
+        except Exception as e:  # noqa: BLE001 - the injected failure
+            failed = repr(e)
+        failed_status = workflow.get_status("resumed")
+        launched = runs()      # the first step of each workflow, once
+        t0 = time.perf_counter()
+        resumed = workflow.rerun(dag, workflow_id="resumed")
+        resume_s = time.perf_counter() - t0
+        resumed_launches = sum(runs()[len(launched):])
+        resumed_status = workflow.get_status("resumed")
+    finally:
+        workflow.set_storage(old)
+        shutil.rmtree(base, ignore_errors=True)
+    wf = dict(run_s=run_s, resume_s=resume_s, status=status,
+              failed_status=failed_status, resumed_status=resumed_status,
+              launches=launched, resumed_launches=resumed_launches,
+              bit_equal=_bit_equal(out["sums"], want_sums),
+              resumed_bit_equal=_bit_equal(resumed["sums"], want_sums),
+              stored_bit_equal=_bit_equal(stored["out"], want),
+              stored_device=str(stored["out"].device),
+              device_uuid=out["device_uuid"])
+    log(f"[workflow] two steps (step(num_gpus={gpus}): flash_attention "
+        f"bf16 BH={BH} S={MAIN_CASE[1]}; then row sums on a CPU worker): "
+        f"{status} in {run_s:.2f} s, output bit-equal to the driver's "
+        f"call={wf['bit_equal']}, first step's launches {launched}, its "
+        f"stored output back on {wf['stored_device']} bit-equal="
+        f"{wf['stored_bit_equal']}, ran on the driver's card="
+        f"{out['device_uuid'] == uuid}; the second step failing once: "
+        f"{failed_status} ({failed}), rerun {resumed_status} in "
+        f"{resume_s:.2f} s, bit-equal={wf['resumed_bit_equal']}, forward "
+        f"launches in the resumed run {resumed_launches}")
+    if not (status == resumed_status == "SUCCESS"
+            and failed_status == "FAILED" and "injected" in str(failed)
+            and wf["bit_equal"] and wf["resumed_bit_equal"]
+            and wf["stored_bit_equal"] and resumed_launches == 0
+            and stored["out"].device.type == device.type
+            and len(launched) == 2):
+        raise AssertionError(f"workflow: {wf}")
+    if gpus and (launched != [1, 1] or out["device_uuid"] != uuid):
+        raise AssertionError(f"workflow: launches {launched} on "
+                             f"{out['device_uuid']} (want {uuid})")
+
+    task = rmt.remote(runtime_smoke.attend).options(num_gpus=gpus)
+    with InputNode() as inp:
+        graph = task.bind(inp, k, v)
+    t0 = time.perf_counter()
+    got = rmt.get(graph.execute(q), timeout=600)
+    dag_s = time.perf_counter() - t0
+    d = dict(dag_s=dag_s, bit_equal=_bit_equal(got["out"], want),
+             launches=got["launches"]["flash_attention_fwd"],
+             designs=got["designs"], lease=got["cuda_visible_devices"],
+             device_uuid=got["device_uuid"])
+    log(f"[dag] InputNode -> num_gpus={gpus} task (flash_attention): "
+        f"execute() in {dag_s:.2f} s, output on {got['out'].device} "
+        f"bit-equal to the driver's call={d['bit_equal']}, lease "
+        f"{d['lease']!r}, its card the driver's={d['device_uuid'] == uuid}"
+        f", launches {d['launches']} {d['designs']}")
+    if not d["bit_equal"] or (gpus and (
+            d["device_uuid"] != uuid or d["lease"] != lease
+            or d["launches"] != 1 or d["designs"]["wgmma"] != 1)):
+        raise AssertionError(f"dag: {d}")
+    return dict(workflow=wf, dag=d)
+
+
+def phase_data_tune(device, train, train_plane, card, preset="gpt2-small",
+                    seq=TRAIN_S):
+    """Phase 13: Data, Tune, Workflow and DAG on the card (see the module
+    docstring). ``train`` is phase 6's result, whose first loss the Tune
+    trials must give; ``train_plane`` phase 10's, whose worker step is
+    printed beside the data-fed one."""
+    import torch
+
+    import ray_memory_management_tpu_torch as rmt
+
+    gpus = int(device.type == "cuda")
+    if gpus:
+        torch.cuda.empty_cache()
+    lease, uuid = _driver_card(device) if gpus else (None, None)
+    t_phase = time.perf_counter()
+    rmt.init(num_cpus=4, num_gpus=gpus, object_store_memory=DATA_STORE)
+    try:
+        inference = _data_inference(device, gpus, uuid, preset, seq)
+        training = _data_training(device, gpus, lease, uuid, train_plane,
+                                  preset, seq)
+        trials = _tune_trials(device, gpus, lease, uuid, train, preset, seq)
+        wf = _workflow_and_dag(device, gpus, lease, uuid)
+    finally:
+        rmt.shutdown()
+    segs, procs = _leftovers()
+    log(f"[data] after rmt.shutdown(): shm segments {segs}, port "
+        f"agent/worker/zygote processes {procs}")
+    if segs or procs:
+        raise AssertionError(f"data and tune: left behind shm {segs} and "
+                             f"processes {procs}")
+    phase_s = time.perf_counter() - t_phase
+    figures = (
+        f"[data_tune] {card}: phase_s={phase_s:.1f} "
+        f"inference_rows_per_s={inference['rows_per_s']:.1f} "
+        f"inference_tokens_per_s={inference['tokens_per_s']:.0f} "
+        f"inference_steady_rows_per_s={inference['steady_rows_per_s']:.1f} "
+        f"inference_first_map_s={inference['cold_s']:.2f} "
+        f"actor_first_batch_s={inference['first_batch_s']:.2f} "
+        f"data_fed_step_ms={training['step_ms']:.2f} "
+        f"data_fed_tokens_per_s={training['tokens_per_s']:.1f} "
+        f"data_fed_mfu={training['mfu']} "
+        f"ingest_wait_ms={training['wait_ms']:.3f} "
+        f"in_process_step_ms={training['in_process_step_ms']:.2f} "
+        f"train_plane_step_ms={training['plane_step_ms']} "
+        f"data_fed_fit_s={training['fit_s']:.2f} "
+        f"data_fed_max_loss_rel={training['max_loss_rel']:.3g} "
+        f"tune_fit_s={trials['fit_s']:.2f} " + " ".join(
+            f"trial_lr{t['lr']:g}_wall_s={t['wall_s']:.2f} "
+            f"trial_lr{t['lr']:g}_cold_start_s={t['cold_start_s']:.2f}"
+            for t in trials["trials"])
+        + f" workflow_run_s={wf['workflow']['run_s']:.2f} "
+        f"workflow_resume_s={wf['workflow']['resume_s']:.2f} "
+        f"dag_execute_s={wf['dag']['dag_s']:.2f}")
+    log(figures)
+    return dict(phase_s=phase_s, inference=inference, training=training,
+                tune=trials, workflow=wf["workflow"], dag=wf["dag"],
+                figures=figures)
+
+
 def main() -> int:
     import torch
 
@@ -2359,28 +2858,44 @@ def main() -> int:
         f"cuda {torch.version.cuda} CUDA_VISIBLE_DEVICES="
         f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r}")
 
+    phases_s = {}
+
+    def timed(name, fn, *args):
+        # each phase's wall seconds, so that a slower run names its phase
+        t = time.perf_counter()
+        out = fn(*args)
+        phases_s[name] = time.perf_counter() - t
+        return out
+
     t0 = time.perf_counter()
-    build_s = phase_build()
-    rows, main_row, train_fwd = phase_kernels(device)
-    bwd_rows, bwd = phase_backward(device)
-    fwd = phase_forward(device)
-    grad = phase_grad(device)
-    serve = phase_serve(device)
-    phase_engine_parity(device)
-    train = phase_train(device)
-    runtime = phase_runtime(device, serve, card)
-    plane = phase_serve_plane(device, serve, runtime["actor"], card)
-    multinode = phase_multinode(device, serve, runtime["actor"], card)
-    train_plane = phase_train_plane(device, train, card)
-    moe = phase_moe(device)
+    build_s = timed("build", phase_build)
+    rows, main_row, train_fwd = timed("kernels", phase_kernels, device)
+    bwd_rows, bwd = timed("backward", phase_backward, device)
+    fwd = timed("forward", phase_forward, device)
+    grad = timed("grad", phase_grad, device)
+    serve = timed("serve", phase_serve, device)
+    timed("engine_parity", phase_engine_parity, device)
+    train = timed("train", phase_train, device)
+    runtime = timed("runtime", phase_runtime, device, serve, card)
+    plane = timed("serve_plane", phase_serve_plane, device, serve,
+                  runtime["actor"], card)
+    multinode = timed("multinode", phase_multinode, device, serve,
+                      runtime["actor"], card)
+    train_plane = timed("train_plane", phase_train_plane, device, train,
+                        card)
+    moe = timed("moe", phase_moe, device)
     torch.cuda.empty_cache()
-    pipeline = phase_pipeline(device)
+    pipeline = timed("pipeline", phase_pipeline, device)
     torch.cuda.empty_cache()
-    vision = phase_vision(device, card)
+    vision = timed("vision", phase_vision, device, card)
+    torch.cuda.empty_cache()
+    data_tune = timed("data_tune", phase_data_tune, device, train,
+                      train_plane, card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
         "card": card, "build_s": build_s, "total_s": total_s,
+        "phases_s": phases_s,
         "main_shape": {"BH": BH, "S": MAIN_CASE[1], "Skv": MAIN_CASE[2],
                        "D": HEAD_DIM, "dtype": MAIN_CASE[0],
                        "causal": MAIN_CASE[3]},
@@ -2388,13 +2903,16 @@ def main() -> int:
         "forward": fwd, "grad": grad, "serve": serve, "train": train,
         "runtime": runtime, "serve_plane": plane,
         "multinode": multinode, "train_plane": train_plane, "moe": moe,
-        "pipeline": pipeline, "vision": vision}}))
+        "pipeline": pipeline, "vision": vision, "data_tune": data_tune}}))
     # the runtime's, the serve plane's and the multi-node figures again,
     # where the end of the output keeps them
     log(runtime["figures"])
     log(plane["figures"])
     log(multinode["figures"])
     log(train_plane["figures"])
+    log(data_tune["figures"])
+    log(f"[phases] {card}: total_s={total_s:.1f} " + " ".join(
+        f"{k}={v:.1f}" for k, v in phases_s.items()))
     src = "ray_memory_management_tpu_torch/csrc/"
     ref = "ray_memory_management_tpu/ops/flash_attention.py:"
     pair = ("SDPA backward, dq, dk and dv together, on the same inputs")
@@ -2453,6 +2971,17 @@ def main() -> int:
         # phase 12a: gpt2-small's GPipe schedule, pp = 4, M = 4
         "launches_pipeline_schedule": pipeline["launches"][
             "flash_attention_fwd"],
+        # phase 13 (each in its own process, counts zeroed just before):
+        # the Data pool actor's 8 batches, the data-fed trainer's 8 steps,
+        # one Tune trial's 4 steps, the two workflows' first steps and
+        # the DAG's task
+        "launches_data_pool": data_tune["inference"]["launches"],
+        "launches_data_trainer": data_tune["training"]["launches"][
+            "flash_attention_fwd"],
+        "launches_tune_trial": data_tune["tune"]["launches"][
+            "flash_attention_fwd"],
+        "launches_workflow": sum(data_tune["workflow"]["launches"]),
+        "launches_dag": data_tune["dag"]["launches"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",
@@ -2464,6 +2993,10 @@ def main() -> int:
         "launches_ring_schedule": moe["ring"]["launches"][
             "flash_attention_dq"],
         "launches_pipeline_schedule": pipeline["launches"][
+            "flash_attention_dq"],
+        "launches_data_trainer": data_tune["training"]["launches"][
+            "flash_attention_dq"],
+        "launches_tune_trial": data_tune["tune"]["launches"][
             "flash_attention_dq"],
         "max_abs_err": bwd["dq"],
         "ms": bwd["dq_ms"],
@@ -2493,6 +3026,10 @@ def main() -> int:
         "launches_ring_schedule": moe["ring"]["launches"][
             "flash_attention_dkv"],
         "launches_pipeline_schedule": pipeline["launches"][
+            "flash_attention_dkv"],
+        "launches_data_trainer": data_tune["training"]["launches"][
+            "flash_attention_dkv"],
+        "launches_tune_trial": data_tune["tune"]["launches"][
             "flash_attention_dkv"],
         "max_abs_err": max(bwd["dk"], bwd["dv"]),
         "ms": bwd["dkv_ms"],

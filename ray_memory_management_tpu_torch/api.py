@@ -129,6 +129,15 @@ class RemoteFunction:
                 for oid in return_ids]
         return refs[0] if len(refs) == 1 else refs
 
+    def bind(self, *args, **kwargs):
+        """A ``dag.FunctionNode`` calling this function on the bound
+        arguments (DAG nodes among them resolve first). The JAX package's
+        ``dag`` documents ``fn.bind(...)``, but its remote functions have
+        no ``bind``."""
+        from .dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
+
     def __call__(self, *args, **kwargs):
         raise TypeError(
             "remote functions must be called with .remote() "
@@ -228,6 +237,13 @@ class ActorMethod:
 
     def options(self, num_returns: int = 1) -> "ActorMethod":
         return ActorMethod(self._handle, self._name, num_returns)
+
+    def bind(self, *args, **kwargs):
+        """A ``dag.ClassMethodNode`` calling this method (see
+        ``RemoteFunction.bind``)."""
+        from .dag import ClassMethodNode
+
+        return ClassMethodNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs):
         enc_args, enc_kwargs = _encode_call(args, kwargs)

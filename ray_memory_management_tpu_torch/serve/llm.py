@@ -247,7 +247,15 @@ class ContinuousBatcher:
         limit = self.cfg.max_seq - self.max_new_tokens
         return toks[-limit:]
 
-    def _bucket_for(self, toks: List[int]) -> int:
+    def _prefill_len(self, toks: List[int]) -> int:
+        """Length of a prompt's prefill: its pad bucket for a dense
+        model, the prompt alone for MoE. MoE pads would route with the
+        prompt (their choices take the real tokens' expert places) and
+        the bucket would set its dispatch group and capacity, so its
+        tokens would leave ``gpt.generate``'s (a fault of the JAX
+        engine)."""
+        if self.cfg.n_experts:
+            return len(toks)
         limit = self.cfg.max_seq - self.max_new_tokens
         bucket = max(self.pad_multiple,
                      ((len(toks) + self.pad_multiple - 1)
@@ -256,11 +264,11 @@ class ContinuousBatcher:
 
     def _need_tokens(self, p: _Pending) -> int:
         """Page-aligned KV capacity one request needs for its whole
-        lifetime: the prefill bucket (whose junk tail must fit) or
-        prompt + token budget, whichever is larger."""
+        lifetime: the prefill (whose junk tail must fit) or prompt +
+        token budget, whichever is larger."""
         toks, budget = p.item
         toks = self._clip_tokens(list(toks))
-        need = max(self._bucket_for(toks), len(toks) + budget)
+        need = max(self._prefill_len(toks), len(toks) + budget)
         return min(self.kv_pool.round_tokens(need), self.cfg.max_seq)
 
     def _sample(self, logits):
@@ -275,7 +283,7 @@ class ContinuousBatcher:
                 act.raise_()
         toks, budget = p.item
         toks = self._clip_tokens(toks)
-        bucket = self._bucket_for(toks)
+        bucket = self._prefill_len(toks)
         arr = torch.ones((1, bucket), dtype=torch.long)
         arr[0, : len(toks)] = torch.tensor(toks, dtype=torch.long)
         # right-pad junk is invisible: causality keeps it out of the real

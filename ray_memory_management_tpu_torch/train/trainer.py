@@ -15,9 +15,11 @@ train/data_parallel_trainer.py:52,314), re-targeted for PyTorch on GPUs:
     )
     result = trainer.fit()
 
-``datasets`` takes anything with ``split(n)`` (one part per worker) or
-any other value (every worker gets it whole); the Data library is a
-later slice.
+``datasets`` takes a ``data.Dataset``, or anything else with
+``split(n)``: worker i gets part i of ``split(n)``, and its loop reads
+it through ``session.get_dataset_shard(name)`` (a ``Dataset``'s
+``iter_batches`` yields the part's rows in order). Any other value
+reaches every worker whole.
 
 Unlike the reference, fit() does NOT detour through the Tune trial runner
 (base_trainer.py:354 wraps every trainer as a Tune trainable); the tune/

@@ -16,7 +16,10 @@ Every ``run`` has a deadline (``timeout_s``), and so has each rank's
 process group (gloo's own timeout). A run that misses it, or a rank that
 dies, terminates every rank and breaks the world: each later ``run``
 raises at once with the first failure's message, instead of waiting on
-ranks stuck in a collective that will never complete.
+ranks stuck in a collective that will never complete. Joining the world
+(spawning the ranks, importing torch, the rendezvous) runs no function
+of the caller's and takes what the host's load makes it take, so it has
+a deadline of its own, at least :data:`JOIN_TIMEOUT_S`.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from typing import Any, Callable, List, Optional
 # the world counts as stuck (they may be waiting on the failed rank)
 FAIL_GRACE_S = 10.0
 GLOO_SLACK_S = 10.0
+# the least time the ranks may take to join the world: a short run
+# deadline must not fail a world whose ranks are slow to start
+JOIN_TIMEOUT_S = 120.0
 
 
 def _rank_main(conn, rank: int, world_size: int, init_method: str,
@@ -100,28 +106,31 @@ class LocalWorld:
                 child.close()
                 self._conns.append(parent)
                 self._procs.append(proc)
-            self._collect(pickle.loads, "joining the world")
+            self._collect(pickle.loads, "joining the world",
+                          max(timeout_s, JOIN_TIMEOUT_S))
         except BaseException:
             self.close()
             raise
 
-    def _collect(self, loads, what: str) -> List[Any]:
+    def _collect(self, loads, what: str,
+                 timeout_s: Optional[float] = None) -> List[Any]:
         """Every rank's reply to the last request, in rank order. A rank
-        that dies, or a reply missing at the deadline (``timeout_s``, or
-        :data:`FAIL_GRACE_S` after another rank failed), breaks the
-        world."""
+        that dies, or a reply missing at the deadline (``timeout_s``,
+        the world's by default, or :data:`FAIL_GRACE_S` after another
+        rank failed), breaks the world."""
         from multiprocessing.connection import wait
 
+        timeout_s = self.timeout_s if timeout_s is None else timeout_s
         results: List[Any] = [None] * self.world_size
         errors = []
         pending = {conn: rank for rank, conn in enumerate(self._conns)}
-        deadline = time.monotonic() + self.timeout_s
+        deadline = time.monotonic() + timeout_s
         while pending:
             left = deadline - time.monotonic()
             if left <= 0:
                 ranks = sorted(pending.values())
                 self._break(f"ranks {ranks} timed out {what} "
-                            f"({self.timeout_s} s)" + "".join(
+                            f"({timeout_s} s)" + "".join(
                                 f"\n{e}" for e in errors))
                 raise TimeoutError(self._broken)
             for conn in wait(list(pending), timeout=left):

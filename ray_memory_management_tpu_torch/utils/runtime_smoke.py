@@ -297,3 +297,226 @@ class CollectiveProbe(CollectiveGroupMixin):
                 "backend": group.backend, "world": group.world_size,
                 "lease": os.environ.get("CUDA_VISIBLE_DEVICES"),
                 "device_uuid": _device_uuid(device) if on_card else None}
+
+
+# ----------------------------------------------------- data, tune, workflow
+_SCORERS: Dict[tuple, Any] = {}
+
+
+def _scoring_model(preset: str, seed: int, dtype: str, device):
+    """``preset``'s params and config for :func:`score_batch`, drawn from
+    ``seed`` once per process and device (a pool actor scores every batch
+    with the same weights)."""
+    import dataclasses
+
+    import torch
+
+    from ..models import gpt
+
+    key = (preset, seed, dtype, str(device))
+    if key not in _SCORERS:
+        cfg = dataclasses.replace(gpt.PRESETS[preset],
+                                  dtype=getattr(torch, dtype))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        _SCORERS[key] = (gpt.init_params(cfg, gen, device), cfg)
+    return _SCORERS[key]
+
+
+def score_batch(batch, *, preset: str = "gpt2-small", seed: int = 0,
+                dtype: str = "bfloat16", device=None) -> Dict[str, Any]:
+    """Batch inference for ``Dataset.map_batches``: ``batch`` is a numpy
+    array of token rows [b, S]; ``preset``'s forward (the flash forward
+    kernel on the card) scores them on this process's card (``device``
+    None; it raises without one). Returns host numpy columns:
+    ``logprob`` (fp32, each row's mean log-probability of its next
+    token), ``argmax`` (the most likely id after the last position), and
+    per row the batch's reads of this process: ``launches`` and
+    ``wgmma`` (flash forward launches and their wgmma share, counted
+    from zero just before this batch's forward and read just after),
+    ``batch_s`` (this call's seconds, the first call's including the
+    model's draw), ``pid`` and ``device_uuid``."""
+    import numpy as np
+    import torch
+
+    from ..models import gpt
+    from ..ops.flash_attention import (fwd_design_counts, launch_count,
+                                       reset_launch_count)
+    from .device import resolve_device
+
+    t0 = time.perf_counter()
+    device = resolve_device(device)
+    params, cfg = _scoring_model(preset, seed, dtype, device)
+    tokens = torch.from_numpy(np.array(batch, np.int64)).to(device)
+    with torch.inference_mode():
+        reset_launch_count()
+        logits = gpt.forward(params, tokens, cfg)
+        launches, wgmma = launch_count(), fwd_design_counts()["wgmma"]
+        head = logits[:, :-1]
+        take = head.gather(-1, tokens[:, 1:, None])[..., 0]
+        logprob = (take - torch.logsumexp(head, dim=-1)).mean(-1)
+        argmax = logits[:, -1].argmax(-1)
+        logprob, argmax = logprob.cpu().numpy(), argmax.cpu().numpy()
+    n = len(logprob)
+    uuid = _device_uuid(device) if device.type == "cuda" else ""
+    return {"logprob": logprob.astype(np.float32),
+            "argmax": argmax.astype(np.int64),
+            "launches": np.full(n, launches, np.int64),
+            "wgmma": np.full(n, wgmma, np.int64),
+            "batch_s": np.full(n, time.perf_counter() - t0),
+            "pid": np.full(n, os.getpid(), np.int64),
+            "device_uuid": np.full(n, uuid)}
+
+
+def split_next_token(batch) -> Dict[str, Any]:
+    """``map_batches`` body: rows of S + 1 ids become ``tokens`` (the
+    first S) and ``targets`` (the last S)."""
+    return {"tokens": batch[:, :-1], "targets": batch[:, 1:]}
+
+
+def data_train_loop(config: Dict[str, Any]) -> None:
+    """A ``TorchTrainer`` loop fed by the Data library (``chip_smoke.py``
+    phase 13 (b)): the worker's ``get_dataset_shard("train")`` yields
+    ``{"tokens", "targets"}`` batches of ``config["batch"]`` rows through
+    ``iter_batches(batch_format="numpy")``; each goes to the worker's
+    device and through ``make_train_step`` (AdamW, ``gpu_bench.ADAMW``)
+    over a ``{"dp": world}`` mesh. Params are ``config["params"]`` (a
+    numpy tree of the JAX package's layout, through
+    ``convert.params_from_jax``) or ``gpu_bench``'s seeded draw of
+    ``config["preset"]``; ``config["dtype"]`` is the compute dtype.
+
+    Every step is synchronised and timed from the end of the previous
+    one, so its time holds the wait in ``iter_batches`` and the copy to
+    the device; the wait is also timed alone. Launch counts are zeroed
+    just before the first step and read just after the last. One final
+    report holds every step's loss, times and waits, the launches, the
+    worker's lease and card."""
+    import dataclasses
+
+    import torch
+
+    from .. import parallel as par
+    from ..models import gpt
+    from ..models.convert import params_from_jax
+    from ..ops.flash_attention import (bwd_design_counts, fwd_design_counts,
+                                       launch_counts, reset_launch_count)
+    from ..train import session
+    from . import gpu_bench
+
+    t_loop = time.time()
+    device = torch.device(config["device"])
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    B, S = config["batch"], config["seq"]
+    cfg = dataclasses.replace(gpt.PRESETS[config["preset"]], max_seq=S,
+                              dtype=getattr(torch, config["dtype"]))
+    if config.get("params") is not None:
+        params = params_from_jax(config["params"], device=device)
+    else:
+        params = gpu_bench.setup_training(config["preset"], B, S, False,
+                                          "flash", device)[0]
+    mesh = par.make_mesh({"dp": session.get_world_size()},
+                         device_type=device.type)
+    n_params = gpt.count_params(params)
+    sp = par.shard_pytree(params, mesh, par.param_pspecs(params, mesh, "dp"))
+    del params
+    opt = torch.optim.AdamW(list(gpt.param_leaves(sp)), **gpu_bench.ADAMW)
+    step = par.make_train_step(lambda p, b: gpt.loss_fn(p, b, cfg), opt,
+                               mesh)
+    batches = session.get_dataset_shard("train").iter_batches(
+        batch_size=B, batch_format="numpy", drop_last=True)
+    sync()
+    t_ready = time.time()
+
+    reset_launch_count()
+    losses, step_s, wait_s = [], [], []
+    t_prev = time.perf_counter()
+    for rows in batches:
+        wait_s.append(time.perf_counter() - t_prev)
+        batch = {k: torch.from_numpy(rows[k].astype("int64")).to(device)
+                 for k in ("tokens", "targets")}
+        losses.append(step(sp, batch))
+        sync()
+        t_now = time.perf_counter()
+        step_s.append(t_now - t_prev)
+        t_prev = t_now
+    counts = (launch_counts(), fwd_design_counts(), bwd_design_counts())
+    session.report({
+        "final": True, "losses": torch.stack(losses).tolist(),
+        "step_s": step_s, "wait_s": wait_s, "n_params": n_params,
+        "flops_per_token": 6 * n_params + 6 * cfg.n_layers * S * cfg.d_model,
+        "launches": counts[0], "designs": counts[1],
+        "bwd_designs": counts[2], "t_loop": t_loop, "t_ready": t_ready,
+        "backend": str(torch.distributed.get_backend()),
+        "lease": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "device_uuid": _device_uuid(device) if on_card else None,
+    })
+
+
+def tune_trial(config: Dict[str, Any]) -> None:
+    """A Tune function trainable that leases its card (``chip_smoke.py``
+    phase 13 (c)): ``gpu_bench.setup_training``'s model and batch (phase
+    6's seed) on this process's card (``config["device"]`` None; it
+    raises without one), AdamW at ``config["lr"]``, ``config["steps"]``
+    steps, ``session.report`` after each. The last report also holds the
+    launches of the steps (counted from zero just before the first step,
+    read just after the last), the trial's wall-clock marks, its lease
+    and its card."""
+    import torch
+
+    from ..models import gpt
+    from ..ops.flash_attention import (bwd_design_counts, fwd_design_counts,
+                                       launch_counts, reset_launch_count)
+    from ..train import session
+    from . import gpu_bench
+    from .device import resolve_device
+
+    t_start = time.time()
+    device = resolve_device(config.get("device"))
+    params, _, batch, cfg = gpu_bench.setup_training(
+        config["preset"], config["batch"], config["seq"],
+        False, "flash", device)
+    opt = torch.optim.AdamW(list(gpt.param_leaves(params)),
+                            **dict(gpu_bench.ADAMW, lr=config["lr"]))
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    t_ready = time.time()
+    reset_launch_count()
+    steps = config["steps"]
+    for i in range(steps):
+        loss = float(gpu_bench.train_step(params, opt, batch, cfg))
+        report = {"loss": loss, "step": i}
+        if i == steps - 1:
+            sync()
+            report.update(
+                launches=launch_counts(), designs=fwd_design_counts(),
+                bwd_designs=bwd_design_counts(), t_start=t_start,
+                t_ready=t_ready, t_end=time.time(),
+                lease=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                device_uuid=_device_uuid(device) if on_card else None)
+        session.report(report)
+
+
+def attend_step(q, k, v, log_path: str) -> Dict[str, Any]:
+    """A ``workflow.step(num_gpus=1)`` body: :func:`attend` on the step's
+    card, with one line per run appended to ``log_path`` (this process's
+    pid and forward launches), so a caller can count the runs a
+    workflow's resume made."""
+    out = attend(q, k, v)
+    with open(log_path, "a") as f:
+        f.write(f"{os.getpid()} {out['launches']['flash_attention_fwd']}\n")
+    return out
+
+
+def row_sums(attended: Dict[str, Any],
+             fail_marker: str = "") -> Dict[str, Any]:
+    """The second step of ``chip_smoke.py``'s workflow: the fp32 sum of
+    each row of the attention output [BH, S, D] -> [BH, S], computed on
+    the CPU (the step holds no card). It raises once if ``fail_marker``
+    names a file that does not exist yet (and creates it), so the caller
+    can resume a failed workflow."""
+    if fail_marker and not os.path.exists(fail_marker):
+        open(fail_marker, "w").close()
+        raise RuntimeError("injected failure of the workflow's second step")
+    return {"sums": attended["out"].cpu().float().sum(-1),
+            "device_uuid": attended["device_uuid"]}

@@ -198,17 +198,23 @@ def _engine_tokens(engine, prompts):
 
 def test_engine_matches_jax_engine_with_every_slot_live(params):
     """One slot, so every decode row is live: the port's paged engine
-    gives the JAX engine's greedy tokens, prompt after prompt (prefill
-    buckets padded alike)."""
+    gives JAX ``generate``'s greedy tokens, prompt after prompt, and so
+    does the JAX engine where its prefill bucket adds no pad (the
+    64-token prompt). A padded prompt routes its pads in the JAX engine
+    (ROADMAP C3); the port prefills a MoE prompt without them
+    (``tests/test_torch_moe_prefill.py``)."""
     jp, tp = params
     jcfg, tcfg = _configs()
     rng = np.random.default_rng(5)
     prompts = [rng.integers(2, 512, size=n).tolist() for n in (7, 64, 90)]
-    want = _engine_tokens(JEngine(jp, jcfg, max_slots=1, max_new_tokens=10),
-                          prompts)
+    want = [np.asarray(jgpt.generate(jp, jcfg, jnp.asarray([p]), 10))[
+        0, len(p):].tolist() for p in prompts]
+    jax_engine = _engine_tokens(
+        JEngine(jp, jcfg, max_slots=1, max_new_tokens=10), prompts)
     got = _engine_tokens(TEngine(tp, tcfg, max_slots=1, max_new_tokens=10),
                          prompts)
     assert got == want
+    assert jax_engine[1] == want[1]
 
 
 def test_idle_slots_take_no_expert_capacity(params):

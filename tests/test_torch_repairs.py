@@ -194,6 +194,13 @@ def test_a_deadlocked_run_breaks_the_world_within_its_deadline():
         assert time.monotonic() - t0 < 1
 
 
+def test_a_short_run_deadline_does_not_bound_the_join():
+    """Spawning the ranks and importing torch take longer than this
+    run deadline; the join has its own, so the world still forms."""
+    with LocalWorld(2, timeout_s=0.5) as world:
+        assert world.run(_ranks) == [0, 1]
+
+
 def _refuse(rank, world):
     raise ValueError(f"rank {rank} refuses")
 
