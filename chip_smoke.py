@@ -227,6 +227,46 @@ Phases, each of which must pass (any failure exits non-zero):
                 bit-equal, on its card by UUID, one wgmma launch. After
                 ``rmt.shutdown()`` no shm segment, worker or zygote of the
                 port is left.
+  14. surfaces — the state API, dashboard, CLI, job submission and
+                autoscaler over the card, gpt2-small at full width (bf16,
+                weights from seed 0). In this process first: the prefill
+                of 8 seeded rows x 1024 ids (``runtime_smoke.score_batch``,
+                12 forward launches at BH = 96) gives the reference digest
+                (sha256 of the argmax ids and log-probabilities), an
+                ``LLMServer`` the reference greedy tokens, and a
+                ``utils.profiling.trace`` of ``phase_serve``'s burst must
+                name the wgmma forward kernel. Then ``rmt.init(num_gpus=0)``
+                (the head holds no card) with a thin-client port
+                (``ClusterServer``). (b) A ``num_gpus=1`` task of the flash
+                forward (bf16, BH = 12, S = 992, causal) waits as pending
+                demand until ``StandardAutoscaler(ProcessNodeProvider(rt),
+                node_config={"num_cpus": 2, "num_gpus": 1},
+                max_workers=1)`` adds a node agent that leases the card;
+                its output is held against ``reference_attention`` at phase
+                2's tolerance, and the idle node is scaled down. (c0) A
+                node agent holding the card joins, and a ``num_gpus=1``
+                task pins gpt2-small's bf16 weights, packed into one
+                tensor, in its device tier (``list_tasks`` shows its
+                ``hbm_bytes`` at least the weights' bytes). (a)
+                ``JobSubmissionClient(address=...).submit_job`` runs a
+                driver script that joins the head (``init(address=
+                "auto")``) and runs the prefill as a ``num_gpus=1`` task:
+                the job SUCCEEDED, its logged digest equals the in-process
+                one, its head-side job row carries the submission id and
+                ``list_tasks(job_id=...)`` lists the finished GPU task.
+                (c) ``serve.run(llm_deployment("gpt2-small", num_gpus=1,
+                placement_hint=<the weights' id>))`` places the replica
+                ``tier_affine`` (``rmt_serve_replica_placements_total``) on
+                the agent; it serves ``phase_serve``'s burst (>= 12 wgmma
+                launches a request, pages back to 0) and the in-process
+                greedy tokens. (d) While the weights are pinned: the
+                dashboard's ``/api/nodes`` gives the agent GPU 1,
+                ``/api/objects`` the weights ``where == "device"`` on the
+                agent, ``/metrics`` ``rmt_device_bytes_pinned`` of a
+                process on the agent at least their bytes; the port's CLI, run as a subprocess through
+                the client port (``status --address``, ``list objects
+                --address``), prints the same. Nothing is left after
+                ``rmt.shutdown()``.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -2835,6 +2875,426 @@ def phase_data_tune(device, train, train_plane, card, preset="gpt2-small",
                 figures=figures)
 
 
+SURFACES_STORE = 2 << 30      # shm for the job's rows and the replica's hops
+SURFACES_IDS_SEED = 31        # the GPU job's 8 x 1024 prefill ids
+AUTOSCALE_IDLE_S = 4.0        # an idle autoscaled node's life
+JOB_DRIVER = '''\
+"""A job's driver: joins the head that submitted it and runs one GPU
+task, gpt2-small's bf16 prefill of 8 rows x 1024 ids."""
+import json
+import numpy as np
+import ray_memory_management_tpu_torch as rmt
+from ray_memory_management_tpu_torch.utils import runtime_smoke
+
+rmt.init(address="auto")
+ids = np.random.default_rng({seed}).integers(0, {vocab}, (8, {seq}))
+score = rmt.remote(runtime_smoke.score_batch).options(num_gpus=1)
+out = rmt.get(score.remote(ids, preset={preset!r}, device={where!r}),
+              timeout=900)
+print("JOB_RESULT " + json.dumps({{
+    "digest": runtime_smoke.score_digest(out),
+    "launches": int(out["launches"][0]), "wgmma": int(out["wgmma"][0]),
+    "device_uuid": str(out["device_uuid"][0])}}))
+rmt.shutdown()
+'''
+
+
+def _surfaces_autoscale(device, on_card, rt, uuid):
+    """Phase 14 (b): a ``num_gpus=1`` flash forward task waits on a head
+    without a card until ``StandardAutoscaler`` adds a node agent that
+    leases it; the idle agent is then scaled down."""
+    import torch
+
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch.autoscaler import (
+        ProcessNodeProvider, StandardAutoscaler)
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        reference_attention)
+    from ray_memory_management_tpu_torch.utils import runtime_smoke
+
+    provider = ProcessNodeProvider(rt)
+    scaler = StandardAutoscaler(
+        provider, node_config={"num_cpus": 2, "num_gpus": 1},
+        max_workers=1, idle_timeout_s=AUTOSCALE_IDLE_S, runtime=rt)
+    gen = torch.Generator(device=device).manual_seed(14)
+    q, k, v = (torch.randn(BH, MAIN_CASE[1], HEAD_DIM, device=device,
+                           generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    head_gpus = rmt.cluster_resources().get("GPU", 0)
+    t0 = time.perf_counter()
+    ref = rmt.remote(runtime_smoke.attend).options(
+        num_gpus=1).remote(q, k, v)
+    demand = 0
+    while time.perf_counter() - t0 < 60 and not demand:
+        demand = scaler.pending_demand()
+        time.sleep(0.05)
+    while not provider.non_terminated_nodes():
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError("surfaces: the autoscaler added no node")
+        scaler.update()
+        time.sleep(0.1)
+    (node,) = provider.non_terminated_nodes()
+    join_s = time.perf_counter() - t0
+    got = rmt.get(ref, timeout=600)
+    result_s = time.perf_counter() - t0
+    want = reference_attention(q.float(), k.float(), v.float(), True)
+    err = (got["out"].float() - want).abs().max().item()
+    close = bool(torch.allclose(got["out"].float(), want,
+                                atol=TOL["bfloat16"], rtol=TOL["bfloat16"]))
+    launches = got["launches"]["flash_attention_fwd"]
+    while provider.non_terminated_nodes():
+        if time.perf_counter() - t0 > 240:
+            raise AssertionError("surfaces: the idle node never went")
+        scaler.update()
+        time.sleep(0.1)
+    down_s = time.perf_counter() - t0
+    r = dict(join_s=join_s, result_s=result_s, down_s=down_s,
+             launches=launches, designs=got["designs"], max_abs_err=err,
+             launched=scaler.num_launches,
+             terminated=scaler.num_terminations)
+    log(f"[surfaces] (b) head GPU={head_gpus}; a num_gpus=1 flash "
+        f"forward task (bf16 BH={BH} S={MAIN_CASE[1]} causal) made "
+        f"pending demand {demand}; StandardAutoscaler(ProcessNodeProvider,"
+        f" num_gpus=1) launched node {node.hex()[:8]}: joined "
+        f"{join_s:.2f} s, result {result_s:.2f} s, scaled down "
+        f"{down_s:.2f} s after the demand (idle timeout "
+        f"{AUTOSCALE_IDLE_S:g} s); ran on node {got['node_id'][:8]} "
+        f"CUDA_VISIBLE_DEVICES={got['cuda_visible_devices']!r}, launches "
+        f"{got['launches']} {got['designs']}, max_abs_err={err:.3e} "
+        f"against reference_attention (tol {TOL['bfloat16']:g})")
+    ok = (head_gpus == 0 and demand >= 1 and close
+          and got["node_id"] == node.hex() and r["launched"] == 1
+          and r["terminated"] == 1 and not rt.nodes[node].alive)
+    if on_card:
+        ok = ok and (launches == 1 and got["designs"]["wgmma"] == 1
+                     and got["device_uuid"] == uuid)
+    if not ok:
+        raise AssertionError(f"surfaces: autoscaled GPU task off: {r}")
+    return r
+
+
+def _surfaces_job(here, tmp, address, on_card, uuid, preset, seq, want):
+    """Phase 14 (a): a submitted driver joins the head and runs the GPU
+    prefill; its digest must be the in-process one."""
+    from ray_memory_management_tpu_torch import state
+    from ray_memory_management_tpu_torch.job_submission import (
+        JobSubmissionClient)
+    from ray_memory_management_tpu_torch.models import gpt
+
+    path = os.path.join(tmp, "job_driver.py")
+    with open(path, "w") as f:
+        f.write(JOB_DRIVER.format(
+            seed=SURFACES_IDS_SEED, vocab=gpt.PRESETS[preset].vocab_size,
+            seq=seq, preset=preset, where=None if on_card else "cpu"))
+    client = JobSubmissionClient(os.path.join(tmp, "jobs"), address=address)
+    t0 = time.perf_counter()
+    job = client.submit_job(
+        entrypoint=f"{sys.executable} {path}",
+        runtime_env={"env_vars": {"PYTHONPATH": here}})
+    status = client.get_job_status(job)
+    while status == "RUNNING" and time.perf_counter() - t0 < 600:
+        time.sleep(0.2)
+        status = client.get_job_status(job)
+    done_s = time.perf_counter() - t0
+    logs = client.get_job_logs(job)
+    lines = [ln for ln in logs.splitlines() if ln.startswith("JOB_RESULT ")]
+    if status != "SUCCEEDED" or not lines:
+        raise AssertionError(f"surfaces: job {job} ended {status}; its "
+                             f"log:\n{logs[-4000:]}")
+    res = json.loads(lines[-1].split(" ", 1)[1])
+    rows = [r for r in state.list_jobs() if r.get("submission_id") == job]
+    head_job = rows[0]["job_id"] if rows else None
+    tasks = state.list_tasks(job_id=head_job) if head_job else []
+    gpu_tasks = [t for t in tasks if t["name"].endswith("score_batch")]
+    r = dict(s=done_s, status=status, digest=res["digest"],
+             launches=res["launches"], head_job=head_job,
+             tasks=[(t["name"], t["state"]) for t in tasks])
+    log(f"[surfaces] (a) job {job}: submit to {status} {done_s:.2f} s; "
+        f"its driver joined the head as job {str(head_job)[:8]}, whose "
+        f"tasks {r['tasks']}; the GPU task's prefill (8 x {seq}) digest "
+        f"{res['digest'][:16]} (in-process {want[:16]}, equal="
+        f"{res['digest'] == want}), launches {res['launches']} "
+        f"({res['wgmma']} wgmma) on card {res['device_uuid'][:12] or '-'}")
+    n_layers = gpt.PRESETS[preset].n_layers
+    ok = (res["digest"] == want and len(rows) == 1
+          and [t["state"] for t in gpu_tasks] == ["FINISHED"])
+    if on_card:
+        ok = ok and (res["launches"] == n_layers
+                     and res["wgmma"] == n_layers
+                     and res["device_uuid"] == uuid)
+    if not ok:
+        raise AssertionError(f"surfaces: the GPU job is off: {r}")
+    return r
+
+
+def _surfaces_replica(on_card, agent, uuid, hint, preset, kw, seq,
+                      want_tokens, reqs):
+    """Phase 14 (c): ``llm_deployment(placement_hint=...)`` of the pinned
+    weights' id: the replica placed ``tier_affine`` on the agent serves
+    the burst and the in-process engine's greedy tokens."""
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch import serve as rserve
+    from ray_memory_management_tpu_torch.core import metrics_defs as mdefs
+    from ray_memory_management_tpu_torch.serve.llm import llm_deployment
+
+    def placements():
+        out = {}
+        for tags, v in mdefs.serve_replica_placements().series().items():
+            mode = dict(tags).get("mode")
+            out[mode] = out.get(mode, 0.0) + v
+        return out
+
+    before = placements()
+    rserve.start(http_port=None)
+    t0 = time.perf_counter()
+    app = llm_deployment(preset, ray_actor_options={"num_gpus": 1},
+                         placement_hint=hint,
+                         device=None if on_card else "cpu", **kw)
+    h, run_s, first_s = _deploy_served(rserve, rmt, app, t0)
+    added = {}
+    while time.perf_counter() - t0 < 60 + first_s:
+        added = {m: v - before.get(m, 0.0) for m, v in placements().items()
+                 if v - before.get(m, 0.0) > 0}
+        if added:
+            break
+        time.sleep(0.2)
+    rmt.get(h.reset_counters.remote(), timeout=60)
+    results, _lat, wall, errors, hung = _burst(
+        lambda r: rmt.get(h.remote(r), timeout=600), reqs)
+    c = rmt.get(h.counters.remote(), timeout=60)
+    got = [rmt.get(h.remote({"tokens": p}), timeout=600)["tokens"]
+           for p in seq]
+    launches = c["launches"]["flash_attention_fwd"]
+    r = dict(placements=added, node_id=c["node_id"], run_s=run_s,
+             first_s=first_s, wall_s=wall,
+             requests_per_s=len(reqs) / wall, launches=launches,
+             designs=c["designs"], tokens_equal=got == want_tokens,
+             pages=c["stats"]["kv"]["pages_in_use"], handle=h)
+    log(f"[surfaces] (c) serve.run(llm_deployment({preset!r}, num_gpus=1,"
+        f" placement_hint={hint[:8]})): placements {added}, replica "
+        f"on node {str(c['node_id'])[:8]} (the weights' node "
+        f"{agent.hex()[:8]}), card {str(c['device_uuid'])[:12]}; run "
+        f"{run_s:.2f} s, first reply {first_s:.2f} s; burst of "
+        f"{len(reqs)} in {wall:.3f} s = {r['requests_per_s']:.2f} "
+        f"requests/s, launches {launches} {c['designs']}, pages "
+        f"{r['pages']}; greedy tokens equal to the in-process engine's="
+        f"{r['tokens_equal']}")
+    need = len(reqs) * 12
+    ok = (added == {"tier_affine": 1.0} and c["node_id"] == agent.hex()
+          and not errors and not hung and r["tokens_equal"]
+          and r["pages"] == 0
+          and all(len(x["tokens"]) == kw["max_new_tokens"]
+                  for x in results))
+    if on_card:
+        ok = ok and (c["device_uuid"] == uuid and launches >= need
+                     and c["designs"]["wgmma"] == launches)
+    if not ok:
+        raise AssertionError(f"surfaces: the tier-affine replica is off: "
+                             f"{ {k: v for k, v in r.items() if k != 'handle'} }"
+                             f" errors {errors} hung {hung}")
+    return r
+
+
+def _surfaces_readings(agent, address, hint, nbytes, here):
+    """Phase 14 (d): the dashboard's routes and the CLI, run as a
+    subprocess through the client port, while the weights are pinned."""
+    import urllib.request
+
+    from ray_memory_management_tpu_torch.dashboard import Dashboard
+
+    dash = Dashboard(port=0)
+    try:
+        def fetch(route):
+            with urllib.request.urlopen(dash.url + route, timeout=60) as f:
+                return f.read().decode()
+
+        nodes = json.loads(fetch("/api/nodes"))
+        objects = json.loads(fetch("/api/objects"))
+        metrics = fetch("/metrics")
+    finally:
+        dash.stop()
+    agent_row = [n for n in nodes if n["node_id"] == agent.hex()]
+    agent_gpu = (agent_row[0]["resources_total"].get("GPU")
+                 if agent_row else None)
+    weights = [(o["where"], o["node_id"]) for o in objects
+               if o["object_id"] == hint]
+    # one series per process: the agent's processes hold the weights
+    pinned = [float(ln.rsplit(" ", 1)[1]) for ln in metrics.splitlines()
+              if ln.startswith("rmt_device_bytes_pinned{")
+              and f'node_id="{agent.hex()}"' in ln]
+    env = dict(os.environ, PYTHONPATH=here)
+    cli = [sys.executable, "-m", "ray_memory_management_tpu_torch.scripts.cli"]
+    status = subprocess.run(cli + ["status", "--address", address],
+                            capture_output=True, text=True, timeout=300,
+                            env=env)
+    listed = subprocess.run(cli + ["list", "objects", "--address", address],
+                            capture_output=True, text=True, timeout=300,
+                            env=env)
+    cli_rows = (json.loads(listed.stdout) if listed.returncode == 0
+                else [])
+    cli_weights = [(o["where"], o["node_id"]) for o in cli_rows
+                   if o["object_id"] == hint]
+    agent_line = [ln for ln in status.stdout.splitlines()
+                  if agent.hex() in ln]
+    r = dict(agent_gpu=agent_gpu, weights=weights, pinned=pinned,
+             cli_weights=cli_weights, cli_agent_line=agent_line)
+    log(f"[surfaces] (d) dashboard /api/nodes: the agent's GPU "
+        f"{agent_gpu}; /api/objects: the weights {weights}; /metrics "
+        f"rmt_device_bytes_pinned of the agent's processes {pinned} "
+        f"(weights {nbytes} bytes); CLI "
+        f"status (rc {status.returncode}): {agent_line}; CLI list objects "
+        f"(rc {listed.returncode}): the weights {cli_weights}")
+    ok = (agent_gpu == 1 and weights == [("device", agent.hex())]
+          and pinned and max(pinned) >= nbytes and status.returncode == 0
+          and listed.returncode == 0 and cli_weights == weights
+          and len(agent_line) == 1 and "GPU 1.0" in agent_line[0])
+    if not ok:
+        raise AssertionError(f"surfaces: the readings disagree: {r}; CLI "
+                             f"stderr {status.stderr[-2000:]} "
+                             f"{listed.stderr[-2000:]}")
+    return r
+
+
+def _surfaces_reference(device, preset, kw, seq_prompts, reqs, seq, tmp):
+    """In-process references of phase 14: the GPU job's prefill digest,
+    the engine's greedy tokens, and a ``utils/profiling`` trace of one
+    burst, which must name the forward kernel."""
+    import numpy as np
+
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.serve.llm import LLMServer
+    from ray_memory_management_tpu_torch.utils import profiling, runtime_smoke
+
+    ids = np.random.default_rng(SURFACES_IDS_SEED).integers(
+        0, gpt.PRESETS[preset].vocab_size, (8, seq))
+    digest = runtime_smoke.score_digest(runtime_smoke.score_batch(
+        ids, preset=preset, device=device))
+    runtime_smoke._SCORERS.clear()
+    srv = LLMServer(preset=preset, device=device, **kw)
+    try:
+        want_tokens = [srv.generate(p) for p in seq_prompts]
+        logdir = os.path.join(tmp, "trace")
+        with profiling.trace(logdir, device=device.type):
+            _, _, wall, errors, hung = _burst(srv, reqs)
+    finally:
+        srv.close()
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel"
+                      and "flash_fwd" in e.get("name", "")})
+    log(f"[surfaces] in-process references: prefill digest "
+        f"{digest[:16]}; utils.profiling.trace of one burst ({wall:.3f} s,"
+        f" {len(events)} events) names the forward kernel(s) "
+        f"{short_names(kernels)}")
+    if errors or hung or (device.type == "cuda" and not any(
+            "flash_fwd_wgmma_kernel" in k for k in kernels)):
+        raise AssertionError(f"surfaces: the traced burst failed ({errors},"
+                             f" {hung} hung) or named no forward kernel "
+                             f"({kernels})")
+    return digest, want_tokens, kernels
+
+
+def phase_surfaces(device, card, preset="gpt2-small", seq=TRAIN_S,
+                   max_batch_size=8, max_new_tokens=32, seed=0):
+    """Phase 14: the surfaces over the card (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch import serve as rserve
+    from ray_memory_management_tpu_torch import state
+    from ray_memory_management_tpu_torch.client import ClusterServer
+    from ray_memory_management_tpu_torch.core.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy)
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.utils import runtime_smoke
+
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    uuid = _driver_card(device)[1] if on_card else None
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="rmt_surfaces_")
+    cfg = gpt.PRESETS[preset]
+    kw = dict(max_batch_size=max_batch_size, max_new_tokens=max_new_tokens,
+              seed=seed)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist()
+               for n in (7, 130, 600)]
+    reqs = _serve_requests(cfg.vocab_size, seed)
+    t_phase = time.perf_counter()
+    digest, want_tokens, kernels = _surfaces_reference(
+        device, preset, kw, prompts, reqs, seq, tmp)
+    if on_card:
+        torch.cuda.empty_cache()
+    rt = rmt.init(num_cpus=4, num_gpus=0, object_store_memory=SURFACES_STORE)
+    server = ClusterServer(port=0)
+    address = f"127.0.0.1:{server.port}"
+    try:
+        autoscaled = _surfaces_autoscale(device, on_card, rt, uuid)
+        t0 = time.perf_counter()
+        agent = rt.add_remote_node_process(num_cpus=4, num_gpus=1)
+        join_s = time.perf_counter() - t0
+        pin = rmt.remote(runtime_smoke.pin_weights).options(
+            num_gpus=1, scheduling_strategy=NodeAffinitySchedulingStrategy(
+                agent, soft=False))
+        held = rmt.get(pin.remote(preset, seed, "bfloat16",
+                                  None if on_card else "cpu"), timeout=600)
+        hint = held["object_id"]
+        pin_rows = [t for t in state.list_tasks()
+                    if t["name"].endswith("pin_weights")]
+        hbm = [t["hbm_bytes"] for t in pin_rows]
+        log(f"[surfaces] agent {agent.hex()[:8]} (num_gpus=1) joined "
+            f"in {join_s:.2f} s; a GPU task pinned {preset}'s bf16 weights "
+            f"({held['nbytes']} bytes, object {hint[:8]}) in its device "
+            f"tier on node {str(held['node_id'])[:8]}, card "
+            f"{str(held['device_uuid'])[:12]}; the task's hbm_bytes {hbm}")
+        if not (held["node_id"] == agent.hex() and len(hbm) == 1
+                and hbm[0] and hbm[0] >= held["nbytes"]
+                and (not on_card or held["device_uuid"] == uuid)):
+            raise AssertionError(f"surfaces: pinning the weights is off: "
+                                 f"{held}, hbm_bytes {hbm}")
+        job = _surfaces_job(here, tmp, address, on_card, uuid, preset, seq,
+                            digest)
+        replica = _surfaces_replica(on_card, agent, uuid, hint, preset, kw,
+                                    prompts, want_tokens, reqs)
+        readings = _surfaces_readings(agent, address, hint, held["nbytes"],
+                                      here)
+        replica.pop("handle")
+        del held
+    finally:
+        try:
+            rserve.shutdown()
+        finally:
+            server.close()
+            rmt.shutdown()
+            shutil.rmtree(tmp, ignore_errors=True)
+    segs, procs = _leftovers()
+    log(f"[surfaces] after rmt.shutdown(): shm segments {segs}, port "
+        f"agent/worker/zygote processes {procs}")
+    if segs or procs:
+        raise AssertionError(f"surfaces: left behind shm {segs} and "
+                             f"processes {procs}")
+    phase_s = time.perf_counter() - t_phase
+    figures = (
+        f"[surfaces] {card}: phase_s={phase_s:.1f} job_submit_to_"
+        f"succeeded_s={job['s']:.2f} autoscale_join_s="
+        f"{autoscaled['join_s']:.2f} autoscale_first_result_s="
+        f"{autoscaled['result_s']:.2f} autoscale_down_s="
+        f"{autoscaled['down_s']:.2f} agent_join_s={join_s:.2f} "
+        f"replica_run_s={replica['run_s']:.2f} replica_first_reply_s="
+        f"{replica['first_s']:.2f} replica_requests_per_s="
+        f"{replica['requests_per_s']:.2f}")
+    log(figures)
+    return dict(phase_s=phase_s, job=job, autoscale=autoscaled,
+                replica=replica, readings=readings, kernels=kernels,
+                figures=figures)
+
+
 def main() -> int:
     import torch
 
@@ -2891,6 +3351,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     data_tune = timed("data_tune", phase_data_tune, device, train,
                       train_plane, card)
+    torch.cuda.empty_cache()
+    surfaces = timed("surfaces", phase_surfaces, device, card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -2903,7 +3365,8 @@ def main() -> int:
         "forward": fwd, "grad": grad, "serve": serve, "train": train,
         "runtime": runtime, "serve_plane": plane,
         "multinode": multinode, "train_plane": train_plane, "moe": moe,
-        "pipeline": pipeline, "vision": vision, "data_tune": data_tune}}))
+        "pipeline": pipeline, "vision": vision, "data_tune": data_tune,
+        "surfaces": surfaces}}, default=str))
     # the runtime's, the serve plane's and the multi-node figures again,
     # where the end of the output keeps them
     log(runtime["figures"])
@@ -2911,6 +3374,7 @@ def main() -> int:
     log(multinode["figures"])
     log(train_plane["figures"])
     log(data_tune["figures"])
+    log(surfaces["figures"])
     log(f"[phases] {card}: total_s={total_s:.1f} " + " ".join(
         f"{k}={v:.1f}" for k, v in phases_s.items()))
     src = "ray_memory_management_tpu_torch/csrc/"
@@ -2982,6 +3446,12 @@ def main() -> int:
             "flash_attention_fwd"],
         "launches_workflow": sum(data_tune["workflow"]["launches"]),
         "launches_dag": data_tune["dag"]["launches"],
+        # phase 14 (each in its own process, counts zeroed just before):
+        # the submitted job's GPU prefill, the autoscaled node's task and
+        # the tier-affine replica's burst
+        "launches_job": surfaces["job"]["launches"],
+        "launches_autoscaled_task": surfaces["autoscale"]["launches"],
+        "launches_tier_affine_replica": surfaces["replica"]["launches"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",

@@ -474,14 +474,29 @@ def init(
     namespace: Optional[str] = None,
     ignore_reinit_error: bool = False,
     _config: Optional[Config] = None,
+    address: Optional[str] = None,
 ):
     """Start an in-process cluster with ``num_nodes`` virtual nodes (each a
     NodeManager + store + worker pool). The multi-node shape exists for
     scheduling/FT semantics and tests (cluster_utils.py analog); other
     hosts join as node agents (``core/node_agent.py``;
-    ``Runtime.add_remote_node_process`` starts one on this host)."""
+    ``Runtime.add_remote_node_process`` starts one on this host).
+
+    ``address="HOST:PORT"`` instead joins a running cluster's client port
+    as a thin client (``client.connect``), and ``address="auto"`` joins
+    the one ``RMT_CLIENT_ADDRESS`` names — as a driver submitted through
+    ``job_submission`` does (the ``ray.init(address=...)`` analog)."""
     from .core.runtime import Runtime
 
+    if address is not None:
+        from .client import connect
+
+        if address == "auto":
+            address = os.environ.get("RMT_CLIENT_ADDRESS")
+            if not address:
+                raise RmtError("init(address='auto') needs "
+                               "RMT_CLIENT_ADDRESS")
+        return connect(address)
     with _init_lock:
         if _worker_context.get_runtime() is not None:
             if ignore_reinit_error:
@@ -528,6 +543,11 @@ def shutdown() -> None:
     if rt is not None:
         rt.shutdown()
         _worker_context.set_runtime(None)
+        return
+    from .client import client as _client_mod
+
+    if _client_mod._client is not None:
+        _client_mod.disconnect()
 
 
 def is_initialized() -> bool:

@@ -9,6 +9,7 @@ call transparently proxies to the remote cluster.
 
 from __future__ import annotations
 
+import os
 import threading
 from multiprocessing.connection import Client as _MpClient
 from typing import Any, Dict, List, Optional, Tuple
@@ -35,8 +36,12 @@ class ClientBackend:
         from ..config import WIRE_PROTOCOL_VERSION
 
         # fail fast on a bad address AND on a version-skewed server (the
-        # server raises a mismatch error back through this request)
-        self._request({"type": "ping", "proto": WIRE_PROTOCOL_VERSION})
+        # server raises a mismatch error back through this request); a
+        # submitted job's driver tags its head-side job row with its
+        # submission id (job_submission sets RMT_SUBMISSION_ID)
+        self._request({"type": "ping", "proto": WIRE_PROTOCOL_VERSION,
+                       "submission_id":
+                           os.environ.get("RMT_SUBMISSION_ID")})
 
     # -- transport ------------------------------------------------------------
     def _recv_loop(self) -> None:
@@ -140,6 +145,16 @@ class ClientBackend:
 
     def cluster_resources(self) -> Dict[str, float]:
         return self._request({"type": "cluster_resources"})["resources"]
+
+    def request_resources(self, bundles) -> None:
+        """Pin the head autoscaler's demand floor
+        (``autoscaler.request_resources``)."""
+        self._request({"type": "request_resources", "bundles": bundles})
+
+    def state_query(self, fn: str, args: tuple, kwargs: dict):
+        """One state API call answered by the head (``state.api``)."""
+        return self._request({"type": "state_query", "fn": fn,
+                              "args": args, "kwargs": kwargs})["rows"]
 
     # placement groups proxy like the worker proxy does, so gang-scheduling
     # libraries work from thin clients too

@@ -453,6 +453,15 @@ class ClusterServer:
                 reply["actor_id"] = rec.actor_id.binary()
             elif mtype == "cluster_resources":
                 reply["resources"] = rt.scheduler.cluster_resources()
+            elif mtype == "request_resources":
+                from ..autoscaler import request_resources
+
+                request_resources(msg["bundles"])
+            elif mtype == "state_query":
+                from ..state import api as state_api
+
+                reply["rows"] = state_api.answer(
+                    msg["fn"], msg["args"], msg["kwargs"])
             elif mtype == "create_pg":
                 from ..core.placement_group import _manager
 
@@ -588,6 +597,9 @@ class ClusterServer:
                         f"v{WIRE_PROTOCOL_VERSION}, client spoke "
                         f"v{proto} — upgrade the older side")
                 job.proto_verified = True
+                if msg.get("submission_id"):
+                    rt.gcs.tag_job(job.job_id,
+                                   submission_id=msg["submission_id"])
                 reply["pong"] = True
             else:
                 raise ValueError(f"unknown client request {mtype!r}")

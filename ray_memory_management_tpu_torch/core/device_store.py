@@ -30,7 +30,10 @@ per SURVEY.md §7, with CUDA memory in the place of TPU HBM:
 
 Observability: every resident/pinned-bytes change lands in the
 ``rmt_device_objects_pinned`` / ``rmt_device_bytes_pinned`` gauges,
-zero-copy reads bump ``rmt_device_zero_copy_hits_total``, demotions
+one series per process (``node_id``, ``pid``; the sum over the
+process's stores, a serve replica's KV pool included), so the head's
+merge of every worker's gauges keeps each process's tier instead of the
+last writer's; zero-copy reads bump ``rmt_device_zero_copy_hits_total``, demotions
 bump ``rmt_device_evictions_total{to_tier}``; the demotion path carries
 the injectable ``device.evict`` fault site (an injected error DEFERS
 the eviction — the object stays resident and readable; pressure causes
@@ -39,7 +42,9 @@ slowness, never loss).
 
 from __future__ import annotations
 
+import os
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -92,6 +97,22 @@ def _entry_nbytes(array: Any) -> int:
         return 0
 
 
+# every device store of this process: the gauges report their sum
+_LIVE_STORES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _process_tags() -> Dict[str, str]:
+    """The device gauges' tags: this process's node (a worker's
+    ``RMT_NODE_ID``; the driver's head node) and pid."""
+    node = os.environ.get("RMT_NODE_ID")
+    if node is None:
+        from .. import _worker_context
+
+        rt = _worker_context.get_runtime()
+        node = rt.head_node().node_id.hex() if rt is not None else ""
+    return {"node_id": node, "pid": str(os.getpid())}
+
+
 class DeviceObjectStore:
     """Process-local refcounted device pin table with LRU demotion.
 
@@ -112,6 +133,7 @@ class DeviceObjectStore:
         self.capacity_bytes = int(capacity_bytes)
         self._on_demote = on_demote
         self._victim_rank: Optional[Callable[[bytes], int]] = None
+        _LIVE_STORES.add(self)
 
     # -- configuration --------------------------------------------------------
     def set_demoter(self, on_demote: Callable[[bytes, Any], bool],
@@ -338,9 +360,13 @@ class DeviceObjectStore:
         try:
             from . import metrics_defs as mdefs
 
-            with self._lock:
-                count, total = len(self._objects), self._total
-            mdefs.device_objects_pinned().set(float(count))
-            mdefs.device_bytes_pinned().set(float(total))
+            count = total = 0
+            for store in list(_LIVE_STORES):
+                with store._lock:
+                    count += len(store._objects)
+                    total += store._total
+            tags = _process_tags()
+            mdefs.device_objects_pinned().set(float(count), tags=tags)
+            mdefs.device_bytes_pinned().set(float(total), tags=tags)
         except Exception:  # noqa: BLE001 — gauges never fail the data path
             pass

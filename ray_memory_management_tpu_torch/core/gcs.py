@@ -382,6 +382,14 @@ class GCS:
                 **(info or {}),
             }
 
+    def tag_job(self, job_id: bytes, **fields) -> None:
+        """Add fields to a job's row (a submitted driver's submission
+        id, say)."""
+        with self._lock:
+            row = self.jobs.get(job_id)
+            if row is not None:
+                row.update(fields)
+
     def set_job_state(self, job_id: bytes, state: str,
                       message: str = "") -> None:
         with self._lock:

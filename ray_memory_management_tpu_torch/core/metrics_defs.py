@@ -84,11 +84,13 @@ DEFS: Dict[str, tuple] = {
     "rmt_device_store_bytes": (Gauge, dict(
         description="Accelerator-resident object bytes (device store).")),
     "rmt_device_objects_pinned": (Gauge, dict(
-        description="Objects currently resident in this process's "
-                    "device (HBM) tier.")),
+        description="Objects currently resident in a process's device "
+                    "tier, per process (node_id, pid).",
+        tag_keys=("node_id", "pid"))),
     "rmt_device_bytes_pinned": (Gauge, dict(
-        description="Bytes currently resident in this process's device "
-                    "(HBM) tier.")),
+        description="Bytes currently resident in a process's device "
+                    "tier, per process (node_id, pid).",
+        tag_keys=("node_id", "pid"))),
     "rmt_device_evictions_total": (Counter, dict(
         description="Device objects demoted out of the HBM tier under "
                     "capacity pressure, by destination tier (shm = the "

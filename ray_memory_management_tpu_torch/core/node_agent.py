@@ -1080,6 +1080,7 @@ def main(argv=None) -> int:
                           num_cpus=args.num_cpus, num_gpus=args.num_gpus)
     except ValueError as e:
         # --num-gpus beyond what CUDA_VISIBLE_DEVICES names
+        # rmtcheck: disable=log-discipline — the agent's exit message
         print(f"node agent: {e}", file=sys.stderr)
         return 2
     agent.run()

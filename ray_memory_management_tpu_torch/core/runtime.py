@@ -54,7 +54,7 @@ from .node_manager import NodeManager, WorkerHandle
 from .object_ref import ObjectRef
 from .object_store import StoreClient
 from .resources import CPU, NodeResources, Resources, GPU, task_resources
-from .scheduler import ClusterScheduler
+from .scheduler import ClusterScheduler, InfeasibleRequestError
 from .scheduling_strategies import PlacementGroupSchedulingStrategy
 from .task_spec import ActorCreationSpec, TaskSpec
 
@@ -455,6 +455,10 @@ class Runtime:
         self._waiting_deps: Dict[bytes, Set[bytes]] = {}  # task -> missing oids  # guarded-by: _lock
         self._dep_waiters: Dict[bytes, List[bytes]] = defaultdict(list)  # guarded-by: _lock
         self._pending_schedule: deque = deque()  # guarded-by: _lock
+        # set by an attached autoscaler (autoscaler.StandardAutoscaler):
+        # a task no alive node can hold then waits in _pending_schedule
+        # as demand instead of failing
+        self.autoscaling = False
         # decentralized ownership bookkeeping (reference_count.h:39-61):
         # per-worker borrow pins (each holds one local_refs count until
         # the worker releases or dies) and per-worker owned-put
@@ -1664,6 +1668,16 @@ class Runtime:
             try:
                 node_id = self.scheduler.pick_node(spec.req, strategy,
                                                    locality=locality)
+            except InfeasibleRequestError as e:
+                if self.autoscaling:
+                    # a node the autoscaler adds may hold it: it waits as
+                    # the autoscaler's pending demand, retried every pass
+                    # (the reference's infeasible queue)
+                    with self._lock:
+                        self._pending_schedule.append(spec)
+                    return
+                self._fail_task(spec, TaskError(spec.name, None, str(e)))
+                return
             except ValueError as e:
                 self._fail_task(spec, TaskError(spec.name, None, str(e)))
                 return
@@ -4596,6 +4610,15 @@ class Runtime:
                 if rec is None:
                     raise ValueError(f"no actor named {msg['name']!r}")
                 reply["actor_id"] = rec.actor_id.binary()
+            elif mtype == "request_resources":
+                from ..autoscaler import request_resources
+
+                request_resources(msg["bundles"])
+            elif mtype == "state_query":
+                from ..state import api as state_api
+
+                reply["rows"] = state_api.answer(
+                    msg["fn"], msg["args"], msg["kwargs"])
             else:
                 raise ValueError(f"unknown worker request {mtype}")
         except Exception as e:  # noqa: BLE001

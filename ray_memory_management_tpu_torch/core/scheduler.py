@@ -44,6 +44,11 @@ from .scheduling_strategies import (
 )
 
 
+class InfeasibleRequestError(ValueError):
+    """No alive node can ever hold the request (a node an autoscaler adds
+    might)."""
+
+
 class ClusterScheduler:
     def __init__(self, gcs: GCS, config: Optional[Config] = None,
                  load_fn=None):
@@ -147,7 +152,7 @@ class ClusterScheduler:
                 node = nodes[0]
                 if node.resources.is_feasible(req):
                     return node.node_id
-                raise ValueError(
+                raise InfeasibleRequestError(
                     f"infeasible resource request {req.to_dict()}: no alive "
                     f"node can ever satisfy it"
                 )
@@ -170,7 +175,7 @@ class ClusterScheduler:
                 # soft: fall through to default policy
             feasible = [n for n in nodes if n.resources.is_feasible(req)]
             if not feasible:
-                raise ValueError(
+                raise InfeasibleRequestError(
                     f"infeasible resource request {req.to_dict()}: no alive "
                     f"node can ever satisfy it"
                 )

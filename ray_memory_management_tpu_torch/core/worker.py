@@ -633,6 +633,16 @@ class WorkerRuntimeProxy:
         reply = self._request({"type": "get_named_actor", "name": name})
         return reply["actor_id"]
 
+    def request_resources(self, bundles) -> None:
+        """Pin the head autoscaler's demand floor
+        (``autoscaler.request_resources``)."""
+        self._request({"type": "request_resources", "bundles": bundles})
+
+    def state_query(self, fn: str, args: tuple, kwargs: dict):
+        """One state API call answered by the head (``state.api``)."""
+        return self._request({"type": "state_query", "fn": fn,
+                              "args": args, "kwargs": kwargs})["rows"]
+
     # placement groups proxy to the driver-side manager so nested libraries
     # (a Trainer running inside a Tune trial actor) can gang-schedule — the
     # reference supports the same nesting through its GCS PG manager

@@ -212,9 +212,10 @@ class ServeController:
         ``placement_hint`` (hex object id of e.g. its shipped weights),
         prefer the node whose DEVICE tier already holds that object —
         the replica's params materialize from the card's memory instead
-        of a cross-node fetch. Soft affinity: a gone node falls back to
-        default placement. Inside the controller's worker the state API
-        has no runtime to read, so for now this returns "default"."""
+        of a cross-node fetch. The controller's worker asks the head for
+        the holders (the state API answers through the worker's
+        channel); a device copy ranks before a host copy. Soft affinity:
+        a gone node falls back to default placement."""
         hint = info.cfg.get("placement_hint")
         if not hint:
             return None, "default"
@@ -222,18 +223,20 @@ class ServeController:
             from ..core.scheduling_strategies import (
                 NodeAffinitySchedulingStrategy,
             )
+            from ..ids import NodeID
             from ..state import api as state_api
 
             rows = state_api.list_objects(
                 filters=[("object_id", "=", hint)])
-            rows.sort(key=lambda r: r.get("tier") != "hbm")  # hbm first
-            for row in rows:
-                node_id = row.get("node_id")
-                if node_id:
-                    return (NodeAffinitySchedulingStrategy(
-                        node_id, soft=True), "tier_affine")
+            for row in rank_holders(rows):
+                # the scheduler matches NodeIDs: a hex string never equals
+                # one, and soft affinity would then place anywhere
+                return (NodeAffinitySchedulingStrategy(
+                    NodeID.from_hex(row["node_id"]), soft=True),
+                    "tier_affine")
         except Exception:  # noqa: BLE001 — placement is best-effort
-            pass
+            log.warning("tier-affine lookup of %s failed", hint,
+                        exc_info=True)
         return None, "default"
 
     async def _start_replicas(self, info: _DeploymentInfo, n: int) -> None:
@@ -413,6 +416,13 @@ class ServeController:
                 request_resources([])
             except Exception:  # noqa: BLE001
                 pass
+
+
+def rank_holders(rows):
+    """``list_objects`` rows of one object that name a node, device
+    copies (``where == "device"``) first, then host copies."""
+    held = [r for r in rows if r.get("node_id")]
+    return sorted(held, key=lambda r: r.get("where") != "device")
 
 
 def get_or_create_controller():

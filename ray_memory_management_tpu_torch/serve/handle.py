@@ -30,6 +30,10 @@ from typing import Any, Dict, List, Optional
 from .. import api
 
 
+# how long a new router waits for its first non-empty routing table
+ROUTING_TABLE_WAIT_S = 30.0
+
+
 class NoReplicasError(RuntimeError):
     """The routing table stayed empty for the whole backpressure window
     (deployment deleted, all replicas dead, or never started)."""
@@ -70,7 +74,7 @@ class Router:
     def _refresh(self, block: bool = False) -> None:
         state = api.get(
             self._controller.get_replicas.remote(self._name), timeout=30)
-        deadline = time.monotonic() + 30
+        deadline = time.monotonic() + ROUTING_TABLE_WAIT_S
         while block and not state["replicas"] and \
                 time.monotonic() < deadline:
             time.sleep(0.05)

@@ -735,7 +735,8 @@ class LLMServer:
 def llm_deployment(preset: str = "gpt2-small",
                    ray_actor_options: Optional[dict] = None,
                    max_concurrent_queries: int = 64,
-                   ship_weights: Optional[str] = None, **kwargs):
+                   ship_weights: Optional[str] = None,
+                   placement_hint: Optional[str] = None, **kwargs):
     """A ready-to-run Application serving ``preset``:
 
         from ray_memory_management_tpu_torch import serve
@@ -755,8 +756,9 @@ def llm_deployment(preset: str = "gpt2-small",
     ships them quantized to every replica (:func:`pack_weights`) instead
     of each replica drawing its own. The payload is also put into the
     object store so the controller can place new replicas near the tier
-    holding it (the ``placement_hint`` in the deployment config)."""
-    placement_hint = None
+    holding it (the ``placement_hint`` in the deployment config). An
+    explicit ``placement_hint`` (the hex id of an object, say weights a
+    node already pins in its device tier) takes the payload's place."""
     if ship_weights:
         cfg = gpt.PRESETS[preset]
         device = resolve_device(kwargs.get("device"))
@@ -768,7 +770,8 @@ def llm_deployment(preset: str = "gpt2-small",
         try:
             from .. import api as core_api
 
-            placement_hint = core_api.put(kwargs["weights"]).hex()
+            if placement_hint is None:
+                placement_hint = core_api.put(kwargs["weights"]).hex()
         except Exception:  # noqa: BLE001 — the hint is best-effort; a
             placement_hint = None  # driver without a running runtime
             # still gets weights shipped via the deployment config

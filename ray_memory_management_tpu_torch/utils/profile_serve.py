@@ -1,3 +1,4 @@
+# rmtcheck: disable-file=log-discipline — a command-line report
 """Where the card's time goes: one traced window of a main path.
 
     python3 -m ray_memory_management_tpu_torch.utils.profile_serve

@@ -520,3 +520,47 @@ def row_sums(attended: Dict[str, Any],
         raise RuntimeError("injected failure of the workflow's second step")
     return {"sums": attended["out"].cpu().float().sum(-1),
             "device_uuid": attended["device_uuid"]}
+
+
+# ------------------------------------------------------------- surfaces
+def score_digest(scored: Dict[str, Any]) -> str:
+    """sha256 over :func:`score_batch`'s argmax ids and log-probabilities:
+    two forwards of the same weights on the same rows give the same
+    digest only when both are bit-equal."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(scored["argmax"], np.int64).tobytes())
+    h.update(np.ascontiguousarray(scored["logprob"], np.float32).tobytes())
+    return h.hexdigest()
+
+
+def pin_weights(preset: str = "gpt2-small", seed: int = 0,
+                dtype: str = "bfloat16", device=None) -> Dict[str, Any]:
+    """A GPU task's body: ``preset``'s weights, drawn from ``seed`` in
+    ``dtype`` on this process's card (it raises without one; ``device=
+    "cpu"`` asks for the CPU), packed into one flat tensor and pinned in
+    this worker's device tier. The ref rides back inside the result, so
+    the caller holds the pin (a serve deployment's ``placement_hint``
+    names it) after the task and its lease are done."""
+    import torch
+
+    from .. import api
+    from ..models import gpt
+    from .device import resolve_device
+
+    device = resolve_device(device)
+    cfg = gpt.PRESETS[preset]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = gpt.init_params(cfg, gen, device)
+    packed = torch.cat([t.reshape(-1).to(getattr(torch, dtype))
+                        for t in gpt.param_leaves(params)])
+    del params
+    ref = api.put(packed, device=True)
+    return {"ref": [ref], "object_id": ref.hex(),
+            "nbytes": int(packed.nbytes),
+            "node_id": os.environ.get("RMT_NODE_ID"),
+            "device_uuid": (_device_uuid(device)
+                            if device.type == "cuda" else None)}

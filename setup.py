@@ -14,6 +14,7 @@ setup(
     entry_points={
         "console_scripts": [
             "rmt=ray_memory_management_tpu.scripts.cli:main",
+            "rmt-torch=ray_memory_management_tpu_torch.scripts.cli:main",
         ],
     },
 )

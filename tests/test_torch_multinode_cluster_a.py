@@ -17,12 +17,43 @@ import pytest
 import ray_memory_management_tpu_torch as rmt
 
 
+_shared = []  # the runtime of the cases that take rmt_start_cluster
+
+
 @pytest.fixture
 def rmt_start_cluster():
-    """3-node virtual cluster, 4 CPUs each."""
+    """One runtime for every case of this module that takes this fixture
+    (the conftest's fixture starts one per case): made at the first such
+    case and kept for the next; ``_own_runtime`` shuts it down before a
+    case that starts its own, and ``_end_shared`` at the module's end."""
+    from ray_memory_management_tpu_torch import _worker_context
+
+    if not _shared or _worker_context.get_runtime() is not _shared[0]:
+        rmt.shutdown()
+        _shared[:] = [rmt.init(num_cpus=4, num_nodes=3)]
+    return _shared[0]
+
+
+@pytest.fixture
+def rmt_fresh_runtime():
+    """A cluster of the case's own, for a case that removes nodes."""
     rt = rmt.init(num_cpus=4, num_nodes=3)
     yield rt
     rmt.shutdown()
+
+
+@pytest.fixture(autouse=True)
+def _own_runtime(request):
+    if _shared and "rmt_start_cluster" not in request.fixturenames:
+        rmt.shutdown()
+        _shared.clear()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _end_shared():
+    yield
+    rmt.shutdown()
+    _shared.clear()
 
 
 @pytest.fixture
@@ -90,8 +121,8 @@ def test_no_retry_when_disabled(rmt_start_cluster):
         rmt.get(die.remote(), timeout=60)
 
 
-def test_lineage_reconstruction_on_node_death(rmt_start_cluster):
-    rt = rmt_start_cluster
+def test_lineage_reconstruction_on_node_death(rmt_fresh_runtime):
+    rt = rmt_fresh_runtime
     big = make.remote(400_000)
     rmt.get(big, timeout=30)
     locs = rt.gcs.get_object_locations(big.binary())
@@ -102,12 +133,12 @@ def test_lineage_reconstruction_on_node_death(rmt_start_cluster):
     assert float(val.sum()) == 7.0 * 400_000
 
 
-def test_transitive_lineage_survives_upstream_ref_drop(rmt_start_cluster):
+def test_transitive_lineage_survives_upstream_ref_drop(rmt_fresh_runtime):
     """Lineage pinning: dropping the driver's handle on an UPSTREAM object
     must not prune its lineage while a downstream object derived from it
     is still referenced — recovering the downstream value may need to
     re-execute the whole chain (reference_count.h lineage refcounting)."""
-    rt = rmt_start_cluster
+    rt = rmt_fresh_runtime
 
     @rmt.remote(scheduling_strategy="SPREAD")
     def double(arr):

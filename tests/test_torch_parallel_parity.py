@@ -174,6 +174,19 @@ def _port_losses(rank, world, params_np, batch_np, strategy, axes,
     return [float(step(sp, batch)) for _ in range(STEPS)]
 
 
+@pytest.fixture(scope="module")
+def jax_losses(setup):
+    """The JAX step's losses for a strategy, computed once per module:
+    the own-rows cases reuse the strategy cases' runs."""
+    runs = {}
+
+    def losses(strategy, axes):
+        if strategy not in runs:
+            runs[strategy] = _jax_losses(setup, strategy, axes)
+        return runs[strategy]
+    return losses
+
+
 def _jax_losses(setup, strategy, axes):
     cfg, params, batch, _, _ = setup
     mesh = cpu_mesh(axes)
@@ -189,8 +202,9 @@ def _jax_losses(setup, strategy, axes):
 
 
 @pytest.mark.parametrize("strategy,axes", STRATEGIES)
-def test_strategy_losses_match_jax(setup, world, strategy, axes):
-    want = _jax_losses(setup, strategy, axes)
+def test_strategy_losses_match_jax(setup, jax_losses, world, strategy,
+                                   axes):
+    want = jax_losses(strategy, axes)
     ranks = world.run(_port_losses, setup[3], setup[4], strategy, axes)
     for got in ranks:
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
@@ -198,11 +212,11 @@ def test_strategy_losses_match_jax(setup, world, strategy, axes):
 
 
 @pytest.mark.parametrize("strategy,axes", STRATEGIES[:2])
-def test_own_rows_match_jax_on_the_global_batch(setup, world, strategy,
-                                                axes):
+def test_own_rows_match_jax_on_the_global_batch(setup, jax_losses, world,
+                                                strategy, axes):
     """Each rank passes only its own rows (a DTensor over the data axis):
     the losses are the JAX step's on the concatenated global batch."""
-    want = _jax_losses(setup, strategy, axes)
+    want = jax_losses(strategy, axes)
     ranks = world.run(_port_losses, setup[3], setup[4], strategy, axes,
                       True)
     for got in ranks:

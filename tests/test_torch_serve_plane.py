@@ -16,11 +16,35 @@ import ray_memory_management_tpu_torch as rmt
 from ray_memory_management_tpu_torch import serve
 
 
+_shared = []  # the runtime of the cases that take rmt_start_regular
+
+
 @pytest.fixture
 def rmt_start_regular():
-    rt = rmt.init(num_cpus=4, ignore_reinit_error=True)
-    yield rt
+    """One runtime for every case of this module that takes this fixture
+    (the conftest's fixture starts one per case): made at the first such
+    case and kept for the next; ``_own_runtime`` shuts it down before a
+    case that starts its own, and ``_end_shared`` at the module's end."""
+    from ray_memory_management_tpu_torch import _worker_context
+
+    if not _shared or _worker_context.get_runtime() is not _shared[0]:
+        rmt.shutdown()
+        _shared[:] = [rmt.init(num_cpus=4)]
+    return _shared[0]
+
+
+@pytest.fixture(autouse=True)
+def _own_runtime(request):
+    if _shared and "rmt_start_regular" not in request.fixturenames:
+        rmt.shutdown()
+        _shared.clear()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _end_shared():
+    yield
     rmt.shutdown()
+    _shared.clear()
 
 
 @pytest.fixture

@@ -28,6 +28,7 @@ from ray_memory_management_tpu_torch import serve
 from ray_memory_management_tpu_torch.config import global_config
 from ray_memory_management_tpu_torch.core import metrics_defs as mdefs
 from ray_memory_management_tpu_torch.models.convert import params_from_jax
+from ray_memory_management_tpu_torch.serve import handle as serve_handle
 from ray_memory_management_tpu_torch.serve import llm as tllm
 
 PRECISIONS = ("f32", "bf16", "int8")
@@ -46,13 +47,20 @@ def port_params(jax_params):
                            device="cpu")
 
 
+@pytest.fixture(scope="module")
+def _runtime():
+    """One runtime for the module's serve cases (the conftest's pattern
+    starts one per case); each case starts and shuts down serve on it."""
+    rmt.init(num_cpus=4)
+    yield
+    rmt.shutdown()
+
+
 @pytest.fixture
-def serve_instance():
-    rmt.init(num_cpus=4, ignore_reinit_error=True)
+def serve_instance(_runtime):
     serve.start(http_port=None)
     yield
     serve.shutdown()
-    rmt.shutdown()
 
 
 def _leaf_fields(leaf):
@@ -229,5 +237,7 @@ def test_replica_without_a_card_never_serves(serve_instance, monkeypatch):
     assert serve.status("LLM")["num_replicas"] == 0
     monkeypatch.setattr(global_config(), "serve_backpressure_timeout_s",
                         0.5)
+    # the new router's wait for a first routing table: no replica comes
+    monkeypatch.setattr(serve_handle, "ROUTING_TABLE_WAIT_S", 0.5)
     with pytest.raises(serve.NoReplicasError):
         h.remote({"tokens": [5, 6, 7]})
