@@ -267,6 +267,31 @@ Phases, each of which must pass (any failure exits non-zero):
                 the client port (``status --address``, ``list objects
                 --address``), prints the same. Nothing is left after
                 ``rmt.shutdown()``.
+  15. rllib    — RLlib's learners on the card, rollouts on CPU actors.
+                (a) From one 4000-step CartPole batch recorded by a CPU
+                rollout worker, PPO's update (hidden (64, 64), Adam 5e-4)
+                runs on the card and on the CPU with the same minibatch
+                order, fp32 with TF32 off: the first 8 of its 6 epochs x
+                31 minibatches of 128 must agree within 1e-5 * max|leaf| +
+                1e-6 of the CPU's leaves, the largest difference over all
+                of them is printed (not gated: the clip's branches can
+                part); one IMPALA and one APPO update on a recorded
+                fragment, one DQN update against a distinct target net and
+                one recurrent-PPO update over 8 recorded sequences of 200
+                steps are held alike. (b) PPO at the JAX package's defaults
+                (2 CPU rollout actors, fragment 200, batch 4000, 6 epochs
+                of 128, episodes of 200 steps) trains CartPole until
+                ``episode_reward_mean`` exceeds max(2 x the first, 50),
+                within 12 iterations. (c) ``gpu_bench.rl_learner_bench``
+                at its defaults. (d) IMPALA (2 actors, batch 1600, lr
+                1e-3, seed 1) over 7 iterations ends above 1.5 x its first
+                reward; DQN with 2 actors trains 4 iterations and its
+                target net is synced at least once. Last, 20 of (a)'s PPO
+                updates on the card are traced with ``torch.profiler``:
+                kernels an update, their device time, the idle share of
+                the wall. (e) The flash kernels' launch counts, zeroed at
+                the phase's start, read 0 at its end. Nothing is left
+                after ``rmt.shutdown()``.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -3295,6 +3320,407 @@ def phase_surfaces(device, card, preset="gpt2-small", seq=TRAIN_S,
                 figures=figures)
 
 
+RL_HIDDEN = (64, 64)          # the JAX package's default actor-critic
+RL_BATCH = 4000               # PPO's train_batch_size (the JAX default)
+RL_FRAGMENT = 200             # rollout_fragment_length (the JAX default)
+RL_MINIBATCH = 128            # sgd_minibatch_size (the JAX default)
+RL_EPOCHS = 6                 # num_sgd_iter (the JAX default)
+RL_GATED = 8                  # PPO minibatch updates held to RL_TOL
+RL_PPO_ITERS = 12             # phase 15b's budget of training iterations
+RL_TOL = (1e-5, 1e-6)         # |card - plain| <= a * max|plain leaf| + b
+
+
+def _rl_err(got, want):
+    """(largest |got - want| over the leaves of two trees, largest ratio
+    of a leaf's error to its tolerance RL_TOL)."""
+    from ray_memory_management_tpu_torch.rllib.models import tree_leaves
+
+    worst = over = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g = g.detach().cpu().double()
+        w = w.detach().cpu().double()
+        err = float((g - w).abs().max())
+        tol = RL_TOL[0] * float(w.abs().max()) + RL_TOL[1]
+        worst, over = max(worst, err), max(over, err / tol)
+    return worst, over
+
+
+def _rl_pair(device, init, lr, make):
+    """The same initial tree as trainable leaves on the card and on the
+    CPU, each with its own Adam and update function ``make(opt)``."""
+    import torch
+
+    from ray_memory_management_tpu_torch.rllib.models import (
+        make_adam, tree_map)
+
+    out = []
+    for dev in (device, torch.device("cpu")):
+        params = tree_map(
+            lambda t: t.detach().clone().to(dev).requires_grad_(True), init)
+        opt = make_adam(params, lr)
+        out.append((params, make(opt)))
+    return out
+
+
+def _rl_update_trace(step, reps=20):
+    """One PPO minibatch update on the card, ``reps`` times back to back:
+    the kernels it launches, their device time, and the wall time of an
+    update from a ``torch.profiler`` trace (device rows as in
+    ``device_ms``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_memory_management_tpu_torch.utils.profile_serve import (
+        device_us, kernel_rows)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = kernel_rows(prof)
+    busy_ms = sum(device_us(e) for e in rows) / 1e3 / reps
+    wall_ms = wall / reps * 1e3
+    return dict(kernels_per_update=sum(e.count for e in rows) / reps,
+                device_ms=busy_ms, traced_wall_ms=wall_ms,
+                idle_share=1.0 - busy_ms / wall_ms)
+
+
+def _rl_learner_parity(device):
+    """Phase 15a: the learners' updates on the card against the same
+    updates on the CPU (the plain path), fp32 with TF32 off."""
+    import numpy as np
+    import torch
+
+    from ray_memory_management_tpu_torch.rllib import models as rm
+    from ray_memory_management_tpu_torch.rllib import sample_batch as sb
+    from ray_memory_management_tpu_torch.rllib.appo import make_appo_update
+    from ray_memory_management_tpu_torch.rllib.dqn import (
+        DQNRolloutWorker, make_dqn_update, q_init)
+    from ray_memory_management_tpu_torch.rllib.impala import (
+        IMPALA_COLUMNS, make_impala_update)
+    from ray_memory_management_tpu_torch.rllib.ppo import (
+        PPO_COLUMNS, make_ppo_update, to_device)
+    from ray_memory_management_tpu_torch.rllib.recurrent import (
+        C0, H0, SEQ_COLUMNS, RecurrentRolloutWorker, lstm_ac_init,
+        make_recurrent_ppo_update)
+    from ray_memory_management_tpu_torch.rllib.rollout_worker import (
+        RolloutWorker)
+
+    cpu = torch.device("cpu")
+    env = ("CartPole", {"max_episode_steps": 200})
+    worker = RolloutWorker(*env, RL_HIDDEN, seed=0)
+    t0 = time.perf_counter()
+    batch = sb.concat_batches(
+        [worker.sample(RL_FRAGMENT) for _ in range(RL_BATCH // RL_FRAGMENT)])
+    record_s = time.perf_counter() - t0
+    n = sb.batch_size(batch)
+    init = rm.ac_init(rm.make_generator(0), 4, 2, RL_HIDDEN)
+
+    # PPO: the same minibatch order on both devices
+    (pc, uc), (pp, up) = _rl_pair(
+        device, init, 5e-4, lambda o: make_ppo_update(o, 0.2, 0.5, 0.01))
+    cols_c = to_device(batch, PPO_COLUMNS, device)
+    cols_p = to_device(batch, PPO_COLUMNS, cpu)
+    rng = np.random.default_rng(0)
+    order = [i for _ in range(RL_EPOCHS)
+             for i in sb.minibatch_indices(n, RL_MINIBATCH, rng)]
+    gated = ungated = 0.0
+    card_s = plain_s = 0.0
+    for k, idx in enumerate(order):
+        ic, ip = torch.as_tensor(idx, device=device), torch.as_tensor(idx)
+        t = time.perf_counter()
+        uc(pc, *(cols_c[c][ic] for c in PPO_COLUMNS))
+        _sync(device)
+        t1 = time.perf_counter()
+        up(pp, *(cols_p[c][ip] for c in PPO_COLUMNS))
+        if k:  # the first update of each pays its device's warm-up
+            card_s += t1 - t
+            plain_s += time.perf_counter() - t1
+        err, over = _rl_err(pc, pp)
+        if k < RL_GATED:
+            gated = max(gated, over)
+            if over > 1.0:
+                raise AssertionError(
+                    f"rllib: PPO update {k} on the card is {err:.3e} from "
+                    f"the CPU's, {over:.2f}x the tolerance")
+        ungated = max(ungated, err)
+    ppo = dict(updates=len(order), gated_over=gated,
+               max_abs_err_all=ungated,
+               card_ms=card_s / (len(order) - 1) * 1e3,
+               plain_ms=plain_s / (len(order) - 1) * 1e3, record_s=record_s)
+    # traced at the end of the phase: a profiler session may leave
+    # launches slower for the rest of the process
+    ppo["trace_step"] = lambda: uc(pc, *(cols_c[c][ic] for c in PPO_COLUMNS))
+
+    def one(name, pair, args_c, args_p):
+        (pc, uc), (pp, up) = pair
+        uc(pc, *args_c)
+        up(pp, *args_p)
+        err, over = _rl_err(pc, pp)
+        if over > 1.0:
+            raise AssertionError(f"rllib: the {name} update on the card is "
+                                 f"{err:.3e} from the CPU's, {over:.2f}x "
+                                 f"the tolerance")
+        return dict(max_abs_err=err, over=over)
+
+    # IMPALA and APPO: one fragment with its bootstrap value
+    frag = worker.sample(RL_FRAGMENT)
+    fc, fp = (to_device(frag, IMPALA_COLUMNS, d) for d in (device, cpu))
+    boot = [torch.as_tensor(frag[sb.BOOTSTRAP][0], device=d)
+            for d in (device, cpu)]
+    out = dict(ppo=ppo)
+    out["impala"] = one("IMPALA", _rl_pair(
+        device, init, 5e-4,
+        lambda o: make_impala_update(o, 0.99, 0.5, 0.01)),
+        [*(fc[c] for c in IMPALA_COLUMNS), boot[0]],
+        [*(fp[c] for c in IMPALA_COLUMNS), boot[1]])
+    out["appo"] = one("APPO", _rl_pair(
+        device, init, 5e-4,
+        lambda o: make_appo_update(o, 0.99, 0.5, 0.01, 0.3)),
+        [*(fc[c] for c in IMPALA_COLUMNS), boot[0]],
+        [*(fp[c] for c in IMPALA_COLUMNS), boot[1]])
+
+    # DQN: one double-Q update against a target net that differs from
+    # the online one
+    trans = DQNRolloutWorker(*env, RL_HIDDEN, seed=0).sample(1000, 1.0)
+    pick = np.random.default_rng(1).choice(1000, 128, replace=False)
+    keys = (sb.OBS, sb.ACTIONS, sb.REWARDS, "next_obs", sb.DONES)
+    qinit = q_init(rm.make_generator(0), 4, 2, RL_HIDDEN)
+    target = q_init(rm.make_generator(1), 4, 2, RL_HIDDEN)
+    pair = _rl_pair(device, qinit, 1e-3, lambda o: make_dqn_update(o, 0.99))
+    out["dqn"] = one(
+        "DQN", pair,
+        [rm.tree_map(lambda t: t.to(device), target),
+         *(torch.as_tensor(trans[k][pick], device=device) for k in keys)],
+        [target, *(torch.as_tensor(trans[k][pick]) for k in keys)])
+
+    # recurrent PPO: one update over 8 recorded sequences of 200 steps
+    rw = RecurrentRolloutWorker(*env, None, seed=0, embed_dim=64,
+                                lstm_dim=64)
+    frags = [rw.sample(RL_FRAGMENT) for _ in range(8)]
+    seq = [{c: torch.as_tensor(np.stack([f[c] for f in frags]), device=d)
+            for c in SEQ_COLUMNS} for d in (device, cpu)]
+    state = [[torch.as_tensor(np.concatenate([f[k] for f in frags]),
+                              device=d) for k in (H0, C0)]
+             for d in (device, cpu)]
+    out["recurrent_ppo"] = one("recurrent PPO", _rl_pair(
+        device, lstm_ac_init(rm.make_generator(0), 4, 2, 64, 64), 5e-4,
+        lambda o: make_recurrent_ppo_update(o, 0.2, 0.5, 0.01)),
+        [*(seq[0][c] for c in SEQ_COLUMNS), *state[0]],
+        [*(seq[1][c] for c in SEQ_COLUMNS), *state[1]])
+    return out
+
+
+def _rl_ppo_learns(device, rmt):
+    """Phase 15b: PPO at the JAX package's defaults, learner on the card
+    behind 2 CPU rollout actors, until the reference case's rule holds."""
+    from ray_memory_management_tpu_torch.rllib import PPOConfig
+
+    rmt.init(num_cpus=4, num_gpus=0)
+    try:
+        algo = (PPOConfig()
+                .environment("CartPole",
+                             env_config={"max_episode_steps": 200})
+                .rollouts(num_rollout_workers=2,
+                          rollout_fragment_length=RL_FRAGMENT)
+                .training(train_batch_size=RL_BATCH,
+                          num_sgd_iter=RL_EPOCHS,
+                          sgd_minibatch_size=RL_MINIBATCH,
+                          model={"fcnet_hiddens": list(RL_HIDDEN)})
+                .resources(device=str(device))
+                .debugging(seed=0)
+                .build())
+        if algo.device != device or algo.workers is None:
+            raise AssertionError(f"rllib: the learner is on {algo.device}")
+        rows = []
+        first = None
+        try:
+            for _ in range(RL_PPO_ITERS):
+                r = algo.train()
+                rows.append({k: r[k] for k in (
+                    "episode_reward_mean", "num_env_steps_sampled",
+                    "sample_time_s", "learn_time_s")})
+                if first is None:
+                    first = r["episode_reward_mean"]
+                if r["episode_reward_mean"] > max(2 * first, 50):
+                    break
+        finally:
+            algo.stop()
+    finally:
+        rmt.shutdown()
+    last = rows[-1]["episode_reward_mean"]
+    if not last > max(2 * first, 50):
+        raise AssertionError(f"rllib: PPO on the card did not learn "
+                             f"CartPole in {RL_PPO_ITERS} iterations: "
+                             f"{[r['episode_reward_mean'] for r in rows]}")
+    steps = sum(r["num_env_steps_sampled"] for r in rows)
+    sample_s = sum(r["sample_time_s"] for r in rows)
+    learn_s = sum(r["learn_time_s"] for r in rows)
+    updates = sum(RL_EPOCHS * (r["num_env_steps_sampled"] // RL_MINIBATCH)
+                  for r in rows)
+    return dict(iterations=len(rows), first=first, last=last,
+                rewards=[r["episode_reward_mean"] for r in rows],
+                env_steps_per_s=steps / (sample_s + learn_s),
+                learner_ms=learn_s / updates * 1e3, sample_s=sample_s,
+                learn_s=learn_s)
+
+
+def _rl_impala_dqn(device, rmt):
+    """Phase 15d: IMPALA's async loop with its learner on the card (the
+    copied ``test_learns_async`` rule), then DQN on the card until its
+    target net has been synced."""
+    from ray_memory_management_tpu_torch.rllib import DQNConfig, IMPALAConfig
+    from ray_memory_management_tpu_torch.rllib.models import tree_leaves
+
+    rmt.init(num_cpus=4, num_gpus=0)
+    try:
+        algo = (IMPALAConfig()
+                .environment("CartPole",
+                             env_config={"max_episode_steps": 200})
+                .rollouts(num_rollout_workers=2,
+                          rollout_fragment_length=RL_FRAGMENT)
+                .training(train_batch_size=1600, lr=1e-3)
+                .resources(device=str(device))
+                .debugging(seed=1)
+                .build())
+        rewards, t0, steps = [], time.perf_counter(), 0
+        try:
+            for _ in range(7):
+                r = algo.train()
+                rewards.append(r["episode_reward_mean"])
+                steps += r["num_env_steps_sampled"]
+        finally:
+            algo.stop()
+        impala = dict(rewards=rewards,
+                      env_steps_per_s=steps / (time.perf_counter() - t0))
+        if not rewards[-1] > 1.5 * rewards[0]:
+            raise AssertionError(f"rllib: IMPALA on the card missed the "
+                                 f"async rule: {rewards}")
+
+        dqn_algo = (DQNConfig()
+                    .environment("CartPole",
+                                 env_config={"max_episode_steps": 200})
+                    .rollouts(num_rollout_workers=2,
+                              rollout_fragment_length=100)
+                    .training(lr=1e-3, train_batch_size=128,
+                              learning_starts=400,
+                              target_network_update_freq=100,
+                              updates_per_step=64)
+                    .resources(device=str(device))
+                    .debugging(seed=1)
+                    .build())
+        try:
+            before = [t.clone() for t in tree_leaves(dqn_algo.target_params)]
+            t0 = time.perf_counter()
+            rows = [dqn_algo.train() for _ in range(4)]
+            dqn_s = time.perf_counter() - t0
+            synced = not all(
+                bool((a == b).all()) for a, b in zip(
+                    before, tree_leaves(dqn_algo.target_params)))
+            updates = dqn_algo._updates_done
+            on_card = all(t.device == device
+                          for t in tree_leaves(dqn_algo.params))
+        finally:
+            dqn_algo.stop()
+    finally:
+        rmt.shutdown()
+    dqn = dict(updates=updates, syncs=updates // 100, synced=synced,
+               s=dqn_s, learn_s=sum(r["learn_time_s"] for r in rows),
+               loss=rows[-1].get("loss"))
+    if not (synced and updates >= 100 and on_card):
+        raise AssertionError(f"rllib: DQN on the card: {dqn}, learner on "
+                             f"the card {on_card}")
+    return impala, dqn
+
+
+def phase_rllib(device, card):
+    """Phase 15: RLlib's learners on the card (see the module docstring).
+    The flash kernels' launch counts are zeroed at the start and must
+    read 0 at the end: no RLlib path reaches them."""
+    import math
+
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        launch_counts, reset_launch_count)
+    from ray_memory_management_tpu_torch.utils.gpu_bench import (
+        rl_learner_bench)
+
+    t_phase = time.perf_counter()
+    reset_launch_count()
+    parity = _rl_learner_parity(device)
+    ppo = parity["ppo"]
+    log(f"[rllib] {card}: (a) learner parity, card against CPU, fp32, TF32 "
+        f"off, tolerance {RL_TOL[0]:g} * max|leaf| + {RL_TOL[1]:g}: PPO "
+        f"({RL_BATCH} recorded steps, {RL_EPOCHS} epochs of "
+        f"{RL_MINIBATCH}) first {RL_GATED} updates at "
+        f"{ppo['gated_over']:.3f}x the tolerance, all {ppo['updates']} "
+        f"updates max_abs_err={ppo['max_abs_err_all']:.3e} (not gated); "
+        f"update ms (after the first, each synchronised) card "
+        f"{ppo['card_ms']:.3f} CPU {ppo['plain_ms']:.3f}; "
+        + " ".join(f"{k} {v['max_abs_err']:.3e} ({v['over']:.3f}x)"
+                   for k, v in parity.items() if k != "ppo"))
+
+    learns = _rl_ppo_learns(device, rmt)
+    log(f"[rllib] {card}: (b) PPO at the JAX defaults (hidden "
+        f"{RL_HIDDEN}, 2 CPU rollout actors, fragment {RL_FRAGMENT}, "
+        f"batch {RL_BATCH}, {RL_EPOCHS} x {RL_MINIBATCH}), learner on "
+        f"{device}: episode_reward_mean {learns['rewards']} "
+        f"({learns['iterations']} iterations; rule > max(2 x "
+        f"{learns['first']:.2f}, 50)); env_steps_per_s="
+        f"{learns['env_steps_per_s']:.1f} learner_ms="
+        f"{learns['learner_ms']:.3f} per update sample_s="
+        f"{learns['sample_s']:.2f} learn_s={learns['learn_s']:.2f}")
+    bench = rl_learner_bench(device=device)
+    log(f"[rllib] {card}: (c) rl_learner_bench (2 workers, 4 iterations, "
+        f"batch 4096, fragment 512, 6 x 512): " + json.dumps(bench))
+    impala, dqn = _rl_impala_dqn(device, rmt)
+    log(f"[rllib] {card}: (d) IMPALA async, 2 workers, learner on card: "
+        f"episode_reward_mean {impala['rewards']} (rule > 1.5 x first) "
+        f"env_steps_per_s={impala['env_steps_per_s']:.1f}; DQN on card: "
+        f"{dqn['updates']} updates, {dqn['syncs']} target syncs, "
+        f"learn_s={dqn['learn_s']:.2f}, last loss {dqn['loss']}")
+    trace_step = ppo.pop("trace_step")
+    if device.type == "cuda":
+        ppo.update(_rl_update_trace(trace_step))
+        log(f"[rllib] {card}: a PPO update (minibatch {RL_MINIBATCH}) "
+            f"traced 20 times: {ppo['kernels_per_update']:.1f} kernels, "
+            f"device {ppo['device_ms']:.4f} ms of "
+            f"{ppo['traced_wall_ms']:.3f} ms wall (idle "
+            f"{ppo['idle_share']:.3f})")
+    launches = launch_counts()
+    log(f"[rllib] (e) flash kernel launches over phase 15: {launches} "
+        f"(RLlib's nets reach no kernel)")
+    if any(launches.values()):
+        raise AssertionError(f"rllib: flash kernels launched {launches}")
+    if not (math.isfinite(bench["learner_ms"]) and bench["learner_ms"] > 0):
+        raise AssertionError(f"rllib: bench row {bench}")
+    segs, procs = _leftovers()
+    if segs or procs:
+        raise AssertionError(f"rllib: left behind shm {segs} and "
+                             f"processes {procs}")
+    phase_s = time.perf_counter() - t_phase
+    figures = (
+        f"[rllib] {card}: phase_s={phase_s:.1f} ppo_update_ms_card="
+        f"{ppo['card_ms']:.3f} ppo_update_ms_cpu={ppo['plain_ms']:.3f} "
+        f"ppo_update_kernels={ppo.get('kernels_per_update')} "
+        f"ppo_update_device_ms={ppo.get('device_ms')} "
+        f"ppo_update_idle={ppo.get('idle_share')} "
+        f"ppo_iterations={learns['iterations']} ppo_env_steps_per_s="
+        f"{learns['env_steps_per_s']:.1f} ppo_learner_ms="
+        f"{learns['learner_ms']:.3f} bench_env_steps_per_s="
+        f"{bench['env_steps_per_s']:.1f} bench_learner_ms="
+        f"{bench['learner_ms']:.3f} impala_env_steps_per_s="
+        f"{impala['env_steps_per_s']:.1f}")
+    log(figures)
+    return dict(phase_s=phase_s, parity=parity, ppo=learns, bench=bench,
+                impala=impala, dqn=dqn, launches=launches, figures=figures)
+
+
 def main() -> int:
     import torch
 
@@ -3353,6 +3779,8 @@ def main() -> int:
                       train_plane, card)
     torch.cuda.empty_cache()
     surfaces = timed("surfaces", phase_surfaces, device, card)
+    torch.cuda.empty_cache()
+    rllib = timed("rllib", phase_rllib, device, card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -3366,7 +3794,7 @@ def main() -> int:
         "runtime": runtime, "serve_plane": plane,
         "multinode": multinode, "train_plane": train_plane, "moe": moe,
         "pipeline": pipeline, "vision": vision, "data_tune": data_tune,
-        "surfaces": surfaces}}, default=str))
+        "surfaces": surfaces, "rllib": rllib}}, default=str))
     # the runtime's, the serve plane's and the multi-node figures again,
     # where the end of the output keeps them
     log(runtime["figures"])
@@ -3375,6 +3803,7 @@ def main() -> int:
     log(train_plane["figures"])
     log(data_tune["figures"])
     log(surfaces["figures"])
+    log(rllib["figures"])
     log(f"[phases] {card}: total_s={total_s:.1f} " + " ".join(
         f"{k}={v:.1f}" for k, v in phases_s.items()))
     src = "ray_memory_management_tpu_torch/csrc/"
@@ -3452,6 +3881,8 @@ def main() -> int:
         "launches_job": surfaces["job"]["launches"],
         "launches_autoscaled_task": surfaces["autoscale"]["launches"],
         "launches_tier_affine_replica": surfaces["replica"]["launches"],
+        # phase 15: RLlib's learners, rollouts and bench reach no kernel
+        "launches_rllib": rllib["launches"]["flash_attention_fwd"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",
@@ -3468,6 +3899,7 @@ def main() -> int:
             "flash_attention_dq"],
         "launches_tune_trial": data_tune["tune"]["launches"][
             "flash_attention_dq"],
+        "launches_rllib": rllib["launches"]["flash_attention_dq"],
         "max_abs_err": bwd["dq"],
         "ms": bwd["dq_ms"],
         "plain_ms": bwd["dq_plain_ms"],
@@ -3501,6 +3933,7 @@ def main() -> int:
             "flash_attention_dkv"],
         "launches_tune_trial": data_tune["tune"]["launches"][
             "flash_attention_dkv"],
+        "launches_rllib": rllib["launches"]["flash_attention_dkv"],
         "max_abs_err": max(bwd["dk"], bwd["dv"]),
         "ms": bwd["dkv_ms"],
         "plain_ms": bwd["dkv_plain_ms"],

@@ -8,7 +8,9 @@ dtypes are kept both ways, for every leaf the model has: the MoE
 leaves too (``router`` [L, D, E], ``w1``/``w3`` [L, E, D, F], ``w2``
 [L, E, F, D]). The vision models' flax trees become ``state_dict``s of
 the port's modules (:func:`resnet_state_from_flax`,
-:func:`vit_state_from_flax`).
+:func:`vit_state_from_flax`). RLlib's nets cross with
+:func:`rl_params_from_jax`, and ``optax.adam``'s moments with
+:func:`adam_state_from_optax`.
 """
 
 from __future__ import annotations
@@ -126,3 +128,67 @@ def vit_state_from_flax(params):
     DenseGeneral kernels flattened to [d, d]; a leaf with no port
     counterpart raises."""
     return _flat_state(params, _vit_leaf)
+
+
+def rl_params_from_jax(tree, device: Optional[Union[str, torch.device]] = None
+                       ) -> Any:
+    """An RLlib net's tree — the actor-critic ``{"pi": [{"w", "b"}, ...],
+    "vf": [...]}``, DQN's ``{"q": [...]}`` or the LSTM policy's
+    ``{"embed", "lstm": {"w", "b"}, "pi", "vf"}`` — as the same tree of
+    fp32 tensors on ``device``. The port's layers compute ``x @ w + b``
+    as the JAX ones do, so no leaf is transposed."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return torch.tensor(np.asarray(node), dtype=torch.float32,
+                            device=device)
+
+    return walk(tree)
+
+
+def _sorted_leaves(tree) -> list:
+    """Leaves in JAX's flatten order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _sorted_leaves(v)]
+    return [tree]
+
+
+def _find_adam(state):
+    """The ``ScaleByAdamState`` (an object with ``count``, ``mu`` and
+    ``nu``) inside an optax state's chain of tuples."""
+    if all(hasattr(state, k) for k in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (list, tuple)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state) -> Dict[str, Any]:
+    """``optax.adam``'s state (``(ScaleByAdamState(count, mu, nu), ...)``,
+    with numpy or JAX leaves) as ``torch.optim.Adam``'s per-parameter
+    state: ``{"state": {i: {"step", "exp_avg", "exp_avg_sq"}}}`` with
+    ``i`` the leaf's index in flatten order (the order the port's
+    ``rllib.models.make_adam`` hands its leaves to the optimizer).
+    ``mu`` becomes ``exp_avg``, ``nu`` ``exp_avg_sq``, ``count`` ``step``:
+    both libraries bump the count before the bias correction, so the next
+    step of either divides by the same ``1 - beta ** (count + 1)``."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the "
+                         "optimizer state")
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    mus, nus = _sorted_leaves(adam.mu), _sorted_leaves(adam.nu)
+    return {"state": {
+        i: {"step": step.clone(),
+            "exp_avg": torch.tensor(np.asarray(m), dtype=torch.float32),
+            "exp_avg_sq": torch.tensor(np.asarray(v), dtype=torch.float32)}
+        for i, (m, v) in enumerate(zip(mus, nus))}}

@@ -199,3 +199,68 @@ def vision_train_step(model_name: str = "resnet50", batch_size: int = 128,
         "device": (torch.cuda.get_device_name(device) if on_card
                    else str(device)),
     }
+
+
+def rl_learner_bench(n_workers: int = 2, iters: int = 4,
+                     train_batch: int = 4096, fragment: int = 512,
+                     num_sgd_iter: int = 6, minibatch: int = 512,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> Dict[str, Any]:
+    """RL throughput with the learner on the card: PPO through the full
+    stack — CPU rollout actors sample CartPole fragments in worker
+    processes, the driver-side learner runs minibatch SGD on ``device``
+    (the card unless the caller asks for the CPU). The reference's analog
+    keeps learner threads off the rollout path
+    (rllib/execution/multi_gpu_learner_thread.py).
+
+    Reports overall env_steps_per_s (sample+learn, the headline),
+    learner-only learner_env_steps_per_s, and learner_ms per minibatch
+    update (the epoch loop's wall time, which ends on a host read of the
+    last update's loss, over the updates it ran)."""
+    from .. import api as rmt
+    from ..rllib.ppo import PPOConfig
+
+    dev = resolve_device(device)
+    rmt.init(num_cpus=max(2, n_workers))
+    try:
+        algo = (PPOConfig()
+                .environment("CartPole",
+                             env_config={"max_episode_steps": 200})
+                .rollouts(num_rollout_workers=n_workers,
+                          rollout_fragment_length=fragment)
+                .training(train_batch_size=train_batch, lr=3e-4,
+                          num_sgd_iter=num_sgd_iter,
+                          sgd_minibatch_size=minibatch,
+                          donate_learner_state=True)
+                .resources(device=str(dev))
+                .debugging(seed=0)
+                .build())
+        try:
+            algo.train()  # warm: the first kernels, the workers' spawn
+            steps = 0
+            sample_s = learn_s = 0.0
+            updates = 0
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                r = algo.train()
+                steps += r["num_env_steps_sampled"]
+                sample_s += r["sample_time_s"]
+                learn_s += r["learn_time_s"]
+                updates += num_sgd_iter * max(
+                    1, r["num_env_steps_sampled"] // minibatch)
+            dt = time.perf_counter() - t0
+            return {
+                "env_steps_per_s": steps / dt,
+                "learner_env_steps_per_s": steps / max(learn_s, 1e-9),
+                "learner_ms": learn_s / max(updates, 1) * 1e3,
+                "sample_s": sample_s, "learn_s": learn_s,
+                "algo": "ppo", "n_workers": n_workers,
+                "device": str(dev),
+                # episode_reward_mean is None when no episode completed
+                # in the window — keep the persisted row JSON-numeric
+                "final_reward": r.get("episode_reward_mean") or 0.0,
+            }
+        finally:
+            algo.stop()
+    finally:
+        rmt.shutdown()

@@ -7,6 +7,7 @@ import shutil
 import pytest
 
 from ray_memory_management_tpu_torch.ops import _build
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 

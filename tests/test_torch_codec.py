@@ -15,6 +15,7 @@ import pytest
 
 from ray_memory_management_tpu_torch.config import Config
 from ray_memory_management_tpu_torch.core import codec
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 def _text(n: int) -> bytes:

@@ -18,6 +18,7 @@ import torch
 import ray_memory_management_tpu_torch as rmt
 from ray_memory_management_tpu_torch import collective as col
 from ray_memory_management_tpu_torch.utils.local_world import LocalWorld
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 WORLD = 4
 

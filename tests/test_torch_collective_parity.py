@@ -20,6 +20,7 @@ from ray_memory_management_tpu.collective.mesh_group import (
     MeshCollectives as JaxMeshCollectives,
 )
 from ray_memory_management_tpu_torch.utils.local_world import LocalWorld
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 WORLD = 4
 N = 512

@@ -50,6 +50,7 @@ from ray_memory_management_tpu_torch.ops.flash_attention import (
 )
 from ray_memory_management_tpu_torch.serve.llm import LLMServer
 from ray_memory_management_tpu_torch.utils import gpu_bench
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 BWD_RTOL, BWD_ATOL_OF_MAX = 2.0 ** -8, 1e-3  # chip_smoke.py BWD_TOL, bf16

@@ -18,6 +18,7 @@ from ray_memory_management_tpu.dag import InputNode as JInputNode
 from ray_memory_management_tpu_torch.dag import (
     ClassMethodNode, FunctionNode, InputNode, MultiOutputNode,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 def test_docstring_example_gives_5_in_both_packages(monkeypatch):

@@ -14,6 +14,7 @@ import pytest
 import ray_memory_management_tpu_torch as rmt
 from ray_memory_management_tpu_torch import data as rd
 from ray_memory_management_tpu_torch.data import ActorPoolStrategy
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

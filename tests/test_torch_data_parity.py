@@ -18,6 +18,7 @@ import importlib
 
 import numpy as np
 import pytest
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 PACKAGES = {"jax": "ray_memory_management_tpu",
             "torch": "ray_memory_management_tpu_torch"}

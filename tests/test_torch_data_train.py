@@ -32,6 +32,7 @@ from ray_memory_management_tpu_torch.train import (
     RunConfig, ScalingConfig, TorchTrainer,
 )
 from ray_memory_management_tpu_torch.utils import runtime_smoke
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 B, S, STEPS = 2, 16, 4
 

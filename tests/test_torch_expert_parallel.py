@@ -34,6 +34,7 @@ from ray_memory_management_tpu.parallel import (
     shard_pytree,
 )
 from ray_memory_management_tpu_torch.utils.local_world import LocalWorld
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 WORLD = 4
 STEPS = 3

@@ -22,6 +22,7 @@ from ray_memory_management_tpu_torch.ops.flash_attention import (
     reference_attention,
     reset_launch_count,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 ATOL = 2e-5
 

@@ -36,6 +36,7 @@ from ray_memory_management_tpu_torch.ops.flash_attention import (
     reference_lse,
     reset_launch_count,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 TOL = dict(atol=5e-4, rtol=1e-3)
 

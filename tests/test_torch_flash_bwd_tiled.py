@@ -33,6 +33,7 @@ from ray_memory_management_tpu.ops.flash_attention import (
     _flash_bwd as jax_flash_bwd,
     _flash_fwd as jax_flash_fwd,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 BLOCK = 64
 NEG_BIG = -1e30

@@ -31,6 +31,7 @@ from ray_memory_management_tpu.ops.flash_attention import (
     _flash_fwd as jax_flash_fwd,
     reference_attention as jax_reference,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 BLOCK = 64
 NEG_BIG = -1e30

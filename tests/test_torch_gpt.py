@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from ray_memory_management_tpu.models import gpt as jgpt
 from ray_memory_management_tpu_torch.models import gpt as tgpt
 from ray_memory_management_tpu_torch.models.convert import params_from_jax
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -26,6 +26,7 @@ from ray_memory_management_tpu_torch.core.health import (
     HEALTH_ALERT, HealthEngine, Rule, default_rules,
 )
 from ray_memory_management_tpu_torch.utils import events, faults, metrics, tsdb
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 T0 = 1_000_000.0  # synthetic clock base for standalone-store tests
 

@@ -15,6 +15,7 @@ import subprocess
 import sys
 
 import pytest
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ray_memory_management_tpu_torch")
@@ -101,7 +102,15 @@ def test_walk_covers_the_port():
                   ("train", "checkpoint.py"), ("train", "session.py"),
                   ("utils", "local_world.py"), ("parallel", "pipeline.py"),
                   ("models", "layers.py"), ("models", "resnet.py"),
-                  ("models", "vit.py")):
+                  ("models", "vit.py"), ("rllib", "__init__.py"),
+                  ("rllib", "env.py"), ("rllib", "sample_batch.py"),
+                  ("rllib", "replay.py"), ("rllib", "connectors.py"),
+                  ("rllib", "models.py"), ("rllib", "rollout_worker.py"),
+                  ("rllib", "collector.py"), ("rllib", "multi_agent.py"),
+                  ("rllib", "algorithm.py"), ("rllib", "pg.py"),
+                  ("rllib", "ppo.py"), ("rllib", "impala.py"),
+                  ("rllib", "appo.py"), ("rllib", "dqn.py"),
+                  ("rllib", "recurrent.py")):
         assert os.path.join("ray_memory_management_tpu_torch",
                             *parts) in names
 
@@ -129,10 +138,11 @@ def test_port_names_no_jax_module_in_strings(path):
         "\n".join(bad)
 
 
-@pytest.mark.parametrize("package", ["collective", "parallel", "train"])
+@pytest.mark.parametrize("package", ["collective", "parallel", "train",
+                                     "rllib"])
 def test_subpackage_imports_without_jax(package):
-    """The collective, parallel and train subpackages import in a fresh
-    interpreter without JAX or the JAX package ever loading."""
+    """The collective, parallel, train and rllib subpackages import in a
+    fresh interpreter without JAX or the JAX package ever loading."""
     code = (
         "import sys\n"
         f"import ray_memory_management_tpu_torch.{package}\n"

@@ -28,6 +28,7 @@ from ray_memory_management_tpu_torch.config import Config
 from ray_memory_management_tpu_torch.core.object_ref import ObjectRef
 from ray_memory_management_tpu_torch.exceptions import QuotaExceededError, RmtError
 from ray_memory_management_tpu_torch.utils import faults
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -12,6 +12,7 @@ import time
 import pytest
 
 from ray_memory_management_tpu_torch import launcher
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -38,6 +38,7 @@ from ray_memory_management_tpu_torch.ops import moe as tmoe
 from ray_memory_management_tpu_torch.serve.llm import (
     ContinuousBatcher as TEngine,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 DISPATCH, COMBINE = "gtec,gtd->egcd", "gtec,egcd->gtd"
 

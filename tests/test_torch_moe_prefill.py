@@ -30,6 +30,7 @@ from ray_memory_management_tpu_torch.models.convert import params_from_jax
 from ray_memory_management_tpu_torch.serve.llm import (
     ContinuousBatcher as TEngine,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 FACTOR = 0.5
 NEW = 8

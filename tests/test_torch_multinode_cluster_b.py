@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 import ray_memory_management_tpu_torch as rmt
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 @rmt.remote(scheduling_strategy="SPREAD")

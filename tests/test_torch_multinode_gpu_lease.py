@@ -26,6 +26,7 @@ from ray_memory_management_tpu_torch.config import (
 from ray_memory_management_tpu_torch.core.resources import (
     NodeResources, task_resources)
 from ray_memory_management_tpu_torch.ids import NodeID
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -19,6 +19,7 @@ import ray_memory_management_tpu_torch as rmt
 from ray_memory_management_tpu_torch.core.scheduling_strategies import (
     NodeAffinitySchedulingStrategy,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture

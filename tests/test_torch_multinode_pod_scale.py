@@ -27,6 +27,7 @@ from ray_memory_management_tpu_torch.ids import NodeID
 from ray_memory_management_tpu_torch.utils.sim_agent import (
     SimNodeAgent, close_sim_agents, spawn_sim_agents,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 # --- memory-bounded directory: bit-exact spill/fault round trip --------------

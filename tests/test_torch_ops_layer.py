@@ -14,6 +14,7 @@ from ray_memory_management_tpu_torch.autoscaler import (
     Monitor, StandardAutoscaler, VirtualNodeProvider,
 )
 from ray_memory_management_tpu_torch.job_submission import JobSubmissionClient
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 _shared = []  # the runtime of the cases that take rmt_start_regular

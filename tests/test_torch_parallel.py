@@ -14,6 +14,7 @@ port of sequence, expert and pipeline parallelism.
 import pytest
 
 from ray_memory_management_tpu_torch.utils.local_world import LocalWorld
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 WORLD = 4
 STRATEGIES = [

@@ -29,6 +29,7 @@ from ray_memory_management_tpu.parallel import (
 )
 from ray_memory_management_tpu_torch.parallel.sharding import param_specs
 from ray_memory_management_tpu_torch.utils.local_world import LocalWorld
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 WORLD = 4
 STRATEGIES = [

@@ -33,6 +33,7 @@ from ray_memory_management_tpu.parallel.sharding import param_pspecs
 from ray_memory_management_tpu_torch.models import gpt
 from ray_memory_management_tpu_torch.models.convert import params_from_jax
 from ray_memory_management_tpu_torch.parallel import pipeline as ppl
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 # (preset, layers, stages, microbatches)
 CASES = [("test", 2, 2, 2), ("test", 2, 2, 4), ("test", 4, 4, 2),

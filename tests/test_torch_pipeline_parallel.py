@@ -43,6 +43,7 @@ from ray_memory_management_tpu.parallel import (
 from ray_memory_management_tpu.parallel.pipeline import pipeline_forward
 from ray_memory_management_tpu.parallel.sharding import param_pspecs
 from ray_memory_management_tpu_torch.utils.local_world import LocalWorld
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 WORLD = 4
 STEPS = 3

@@ -28,6 +28,7 @@ from ray_memory_management_tpu_torch.native.shm_client import (
     ShmStoreClosedError,
 )
 from ray_memory_management_tpu_torch.utils.local_world import LocalWorld
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 ROUNDS = 20  # without the lock, about one round in three segfaulted

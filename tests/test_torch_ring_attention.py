@@ -37,6 +37,7 @@ from ray_memory_management_tpu.parallel import (
 )
 from ray_memory_management_tpu_torch.ops.ring_attention import ring_schedule
 from ray_memory_management_tpu_torch.utils.local_world import LocalWorld
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 WORLD = 4
 STEPS = 3

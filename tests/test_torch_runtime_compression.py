@@ -31,6 +31,7 @@ from ray_memory_management_tpu_torch.core.transfer import (
 )
 from ray_memory_management_tpu_torch.utils import faults
 from ray_memory_management_tpu_torch.utils.retry import RetryPolicy
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 CHUNK = 1 << 20
 

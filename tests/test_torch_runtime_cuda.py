@@ -19,6 +19,7 @@ from ray_memory_management_tpu_torch.config import Config
 from ray_memory_management_tpu_torch.core import transfer as xfer
 from ray_memory_management_tpu_torch.core.node_manager import visible_devices
 from ray_memory_management_tpu_torch.exceptions import ObjectLostError
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 N = 1 << 20  # fp32 values per device-tier tensor: 4 MiB
 

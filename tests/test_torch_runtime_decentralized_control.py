@@ -18,6 +18,7 @@ import threading
 
 import ray_memory_management_tpu_torch as rmt
 from ray_memory_management_tpu_torch.core import metrics_defs as mdefs
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 def _count(counter) -> float:

@@ -15,6 +15,7 @@ import pytest
 
 from ray_memory_management_tpu_torch.config import Config
 from ray_memory_management_tpu_torch.core import external_storage as ext
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 _ENV_VARS = ("AWS_ACCESS_KEY_ID", "AWS_SECRET_ACCESS_KEY",
              "AWS_ENDPOINT_URL", "AWS_DEFAULT_REGION",

@@ -35,6 +35,7 @@ from ray_memory_management_tpu_torch.utils.integrity import crc32, crc32_combine
 from ray_memory_management_tpu_torch.utils.retry import (
     RetryExhausted, RetryPolicy, is_retryable_error,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 CHUNK = 1 << 20
 

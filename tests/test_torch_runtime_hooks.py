@@ -23,6 +23,7 @@ from ray_memory_management_tpu_torch import api
 from ray_memory_management_tpu_torch import serialization as ser
 from ray_memory_management_tpu_torch.config import Config
 from ray_memory_management_tpu_torch.core import device_store, zygote
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ray_memory_management_tpu_torch")

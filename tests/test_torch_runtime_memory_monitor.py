@@ -15,6 +15,7 @@ from ray_memory_management_tpu_torch import usage_stats
 from ray_memory_management_tpu_torch.core.memory_monitor import (
     MemoryMonitor, make_newest_task_killer, system_memory_usage,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 _shared = []  # the runtime of the cases that take rmt_start_regular

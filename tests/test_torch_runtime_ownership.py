@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 import ray_memory_management_tpu_torch as rmt
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 BIG = 300_000  # floats: ~2.4 MB, comfortably over the inline limit
 

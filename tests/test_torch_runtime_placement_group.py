@@ -16,6 +16,7 @@ from ray_memory_management_tpu_torch.utils import (
     placement_group_table,
     remove_placement_group,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -25,6 +25,7 @@ from ray_memory_management_tpu_torch.core.scheduling_strategies import (
     SPREAD,
 )
 from ray_memory_management_tpu_torch.ids import NodeID
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 MB = 1 << 20
 

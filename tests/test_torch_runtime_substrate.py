@@ -22,6 +22,7 @@ from ray_memory_management_tpu_torch.core.resources import (
 )
 from ray_memory_management_tpu_torch.ids import JobID, NodeID, ObjectID, TaskID
 from ray_memory_management_tpu_torch.native import ShmStore, ShmStoreFullError
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 # --------------------------------------------------------------------- ids

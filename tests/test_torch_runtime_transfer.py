@@ -18,6 +18,7 @@ from ray_memory_management_tpu_torch.core.object_store import NodeObjectStore
 from ray_memory_management_tpu_torch.core.transfer import (
     ConnectionPool, TransferServer, fetch_object,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 CHUNK = 1 << 20
 

@@ -15,6 +15,7 @@ import pytest
 import ray_memory_management_tpu_torch as rmt
 from ray_memory_management_tpu_torch.utils import ActorPool, Empty, Full, Queue
 from ray_memory_management_tpu_torch.utils import metrics, timeline
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 _shared = []  # the runtime of the cases that take rmt_start_regular

@@ -31,6 +31,7 @@ from ray_memory_management_tpu_torch.core.node_manager import (
     package_env,
     spawn_worker_process,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 def test_forked_workers_run_tasks_and_actors():

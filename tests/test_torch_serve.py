@@ -25,6 +25,7 @@ from ray_memory_management_tpu_torch.models.convert import params_from_jax
 from ray_memory_management_tpu_torch.serve import llm as tllm
 from ray_memory_management_tpu_torch.serve.kv_cache import row_token_bytes
 from ray_memory_management_tpu_torch.utils import faults
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 ENGINE = dict(max_slots=3, max_new_tokens=6, pad_multiple=8,
               steps_per_iter=4, kv_page_tokens=16)

@@ -28,6 +28,7 @@ from ray_memory_management_tpu_torch import serve
 from ray_memory_management_tpu_torch.config import Config, global_config
 from ray_memory_management_tpu_torch.core import metrics_defs as mdefs
 from ray_memory_management_tpu_torch.utils import faults
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 _shared = []  # the runtime of the cases that take rmt_start_regular

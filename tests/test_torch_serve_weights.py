@@ -30,6 +30,7 @@ from ray_memory_management_tpu_torch.core import metrics_defs as mdefs
 from ray_memory_management_tpu_torch.models.convert import params_from_jax
 from ray_memory_management_tpu_torch.serve import handle as serve_handle
 from ray_memory_management_tpu_torch.serve import llm as tllm
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 PRECISIONS = ("f32", "bf16", "int8")
 SERVER = dict(max_new_tokens=6, max_batch_size=2, pad_multiple=16)

@@ -20,6 +20,7 @@ from ray_memory_management_tpu_torch.analysis import all_rules, run_default, \
 from ray_memory_management_tpu_torch.analysis import lockwatch
 from ray_memory_management_tpu_torch.analysis.__main__ import REPORT_VERSION, \
     build_report, main as check_main
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_PKG = os.path.join(HERE, "analysis_fixtures", "pkg")

@@ -1,6 +1,8 @@
 """``utils/strategy_bench.py`` on the CPU: the four-card run of every
 parallel strategy takes its path on a gloo world of 4 spawned ranks."""
 
+from _port_fixtures import one_intra_op_thread  # noqa: F401
+
 
 def test_strategy_bench_runs_on_gloo(capsys):
     """Each strategy's losses stay within the JAX package's 5e-2 of the

@@ -3,6 +3,8 @@ and sp 4 with ring and with Ulysses attention take their path on a gloo
 world of 4 spawned ranks, in fp32 (``--dtype float32``), where the
 sharded steps differ from the unsharded one only in the order of sums."""
 
+from _port_fixtures import one_intra_op_thread  # noqa: F401
+
 
 def test_moe_strategy_rows_run_on_gloo(capsys):
     """Each row's losses stay within 1e-4 of the unsharded run's (the

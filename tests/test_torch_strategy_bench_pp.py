@@ -7,6 +7,7 @@ preset's 2 layers make pp 2 on 2 ranks and dp 2 x pp 2 on 4."""
 import pytest
 
 from ray_memory_management_tpu_torch.utils import strategy_bench
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("ranks,row,axes", [

@@ -26,6 +26,7 @@ import ray_memory_management_tpu as jrmt
 import ray_memory_management_tpu_torch as rmt
 from ray_memory_management_tpu_torch import state
 from ray_memory_management_tpu_torch.client import ClusterServer
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -26,6 +26,7 @@ import pytest
 
 import ray_memory_management_tpu as jrmt
 import ray_memory_management_tpu_torch as rmt
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 def _state_program(pkg):
@@ -88,11 +89,25 @@ def test_state_summaries_and_row_keys_match():
     assert p_summary["tasks"]["total"] >= 7
 
 
+CHECKERS = ("check_faults", "check_health", "check_locks", "check_logs",
+            "check_metrics", "check_protocol", "check_trace")
+
+
 def test_check_rules_match():
+    # the rules register when their checker modules are imported (both
+    # engines import them lazily, in run_checks), so import them on both
+    # sides first: what an earlier case in this process ran must not
+    # decide the comparison
+    import importlib
+
     from ray_memory_management_tpu.analysis import all_rules as j_rules
     from ray_memory_management_tpu_torch.analysis import all_rules
 
+    for pkg in ("ray_memory_management_tpu", "ray_memory_management_tpu_torch"):
+        for name in CHECKERS:
+            importlib.import_module(f"{pkg}.analysis.{name}")
     assert all_rules() == j_rules()
+    assert len(all_rules()) >= 8
 
 
 class _FakeNode:

@@ -28,6 +28,7 @@ import torch
 
 import ray_memory_management_tpu as jrmt
 import ray_memory_management_tpu_torch as rmt
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 def _placements(mdefs):

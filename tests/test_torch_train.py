@@ -38,6 +38,7 @@ from ray_memory_management_tpu_torch.ops.flash_attention import (
     reset_launch_count,
 )
 from ray_memory_management_tpu_torch.utils import gpu_bench
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 LOSS_TOL = dict(rtol=1e-4, atol=1e-4)
 GRAD_TOL = dict(rtol=1e-4, atol=2e-6)

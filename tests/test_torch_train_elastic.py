@@ -33,6 +33,7 @@ from ray_memory_management_tpu_torch.train import (
 )
 from ray_memory_management_tpu_torch.analysis import lockwatch
 from ray_memory_management_tpu_torch.utils import faults
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -38,6 +38,7 @@ from ray_memory_management_tpu_torch.train.backend_executor import (
     WorkerGroup, _TrainWorkerImpl, node_gpu_names,
 )
 from ray_memory_management_tpu_torch.utils.local_world import LocalWorld
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 STEPS = 3
 

@@ -27,6 +27,7 @@ from ray_memory_management_tpu_torch.train import (
     ScalingConfig,
     TorchTrainer,
 )
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 _shared = []  # the runtime of the cases that take rmt_start_regular

@@ -13,6 +13,7 @@ import pytest
 
 from ray_memory_management_tpu import tune as jtune
 from ray_memory_management_tpu_torch import tune as ttune
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 PACKAGES = {"jax": jtune, "torch": ttune}
 

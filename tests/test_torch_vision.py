@@ -47,6 +47,7 @@ from ray_memory_management_tpu_torch.models.convert import (
     vit_state_from_flax,
 )
 from ray_memory_management_tpu_torch.models.layers import same_pads
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

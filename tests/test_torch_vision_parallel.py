@@ -30,6 +30,7 @@ from ray_memory_management_tpu_torch.models.convert import (
     resnet_state_from_flax,
 )
 from ray_memory_management_tpu_torch.utils.local_world import LocalWorld
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 WORLD = 4
 STEPS = 2

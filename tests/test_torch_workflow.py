@@ -12,6 +12,7 @@ import pytest
 
 import ray_memory_management_tpu_torch as rmt
 from ray_memory_management_tpu_torch import workflow
+from _port_fixtures import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
