@@ -292,6 +292,36 @@ Phases, each of which must pass (any failure exits non-zero):
                 the wall. (e) The flash kernels' launch counts, zeroed at
                 the phase's start, read 0 at its end. Nothing is left
                 after ``rmt.shutdown()``.
+  16. rllib2   — RLlib's second half on the card, fp32 with TF32 off.
+                (a) Each new learner's update runs on the card and on the
+                CPU from the same params, optimizer state and draws, 3
+                updates each held to phase 15's 1e-5 * max|leaf| + 1e-6:
+                SAC, TD3 and DDPG (Pendulum's shapes, the draws given),
+                BC, MARWIL and CQL (on a CartPole recording a CPU actor
+                wrote), QMIX (batches a CPU collector recorded), MADDPG
+                (agents stacked [N, ...]), SlateQ, R2D2 (sequences a CPU
+                collector recorded, burn-in 4), the MBPETS ensemble (4 x
+                128 x 128), AlphaZero, and one batched AlphaZero leaf
+                evaluation; one MBPETS plan (horizon 25, population 256,
+                5 rounds) from the trained ensembles with the same draws
+                keeps the same elites every round; ES and ARS steps with
+                eps rebuilt on the card from the seeds, bit-equal to the
+                CPU worker's; 20 LinUCB and LinTS selects (the same arm)
+                and updates. Each learner's updates a second on the card
+                are printed. (b) SAC at ``TestSAC::test_learns_pendulum``'s
+                settings, learner on the card, meets its rule
+                (episode_reward_mean > -900, > 1000 updates, 0 < alpha <
+                0.9) within 80 iterations. (c) MBPETS at ``TestMBPETS``'s
+                settings, planner and ensemble on the card, meets its
+                rule (model_loss < 0.05, the last reward above the first
+                + 100 and above -560) and its ensemble round-trips
+                save/restore. (d) ES with 2 CPU rollout actors at
+                ``test_learns_cartpole_gradient_free``'s settings, the
+                update on the card, reaches best > 60. (e) 20 SAC
+                updates and 5 MBPETS plans traced with ``torch.profiler``
+                (kernels, device ms, idle share); the flash kernels'
+                launch counts, zeroed at the phase's start, read 0 at
+                its end. Nothing is left after ``rmt.shutdown()``.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -3721,6 +3751,723 @@ def phase_rllib(device, card):
                 impala=impala, dqn=dqn, launches=launches, figures=figures)
 
 
+RL2_SAC_ITERS = 80            # TestSAC::test_learns_pendulum's budget
+RL2_MBPETS_ITERS = 22         # TestMBPETS's iterations
+RL2_ES_ITERS = 25             # test_learns_cartpole_gradient_free's budget
+RL2_RATE_REPS = 20            # card updates timed a learner, after parity
+
+
+def _rl2_rate(device, step, reps=RL2_RATE_REPS):
+    """Updates a second of ``step`` on the card, each synchronised."""
+    step()
+    _sync(device)
+    t = time.perf_counter()
+    for _ in range(reps):
+        step()
+        _sync(device)
+    return reps / (time.perf_counter() - t)
+
+
+def _rl2_hold(name, card_tree, cpu_tree):
+    err, over = _rl_err(card_tree, cpu_tree)
+    if over > 1.0:
+        raise AssertionError(f"rllib2: the {name} update on the card is "
+                             f"{err:.3e} from the CPU's, {over:.2f}x the "
+                             f"tolerance")
+    return err, over
+
+
+def _rl2_pair(device, name, build, batches):
+    """``build(dev) -> (trees, step)`` on the card and on the CPU from the
+    same initial trees; ``step(batch)`` runs one update in place. The
+    recorded ``batches`` (tuples of numpy arrays, each update's draws
+    among them) go through both, and every tree is held to RL_TOL after
+    each update, then the card's update is timed. Returns the figures and
+    copies of both trees as the held updates left them."""
+    import torch
+
+    from ray_memory_management_tpu_torch.rllib.models import (
+        detached_copy as copy_tree)
+
+    cpu = torch.device("cpu")
+    (tc, sc), (tp, sp) = build(device), build(cpu)
+    worst = over = 0.0
+    for b in batches:
+        sc(tuple(torch.as_tensor(x, device=device) for x in b))
+        sp(tuple(torch.as_tensor(x) for x in b))
+        err, o = _rl2_hold(name, tc, tp)
+        worst, over = max(worst, err), max(over, o)
+    trees = (copy_tree(tc), copy_tree(tp))
+    last = tuple(torch.as_tensor(x, device=device) for x in batches[-1])
+    rate = _rl2_rate(device, lambda: sc(last))
+    return dict(updates=len(batches), max_abs_err=worst, over=over,
+                updates_per_s=rate), trees
+
+
+def _rl2_offpolicy_learners():
+    """SAC, TD3 and DDPG learners (Pendulum's shapes, hidden (64, 64)),
+    their numpy-seeded batches with the draws each update takes."""
+    import numpy as np
+    import torch
+
+    from ray_memory_management_tpu_torch.rllib import models as rm
+    from ray_memory_management_tpu_torch.rllib.sac import (
+        CRITICS, make_sac_update, sac_init)
+    from ray_memory_management_tpu_torch.rllib.td3 import (
+        critic_keys, make_td3_update, td3_init)
+
+    rng = np.random.default_rng(11)
+    B, D, A = 128, 3, 1
+
+    def batches(n_draws):
+        return [(rng.normal(size=(B, D)).astype(np.float32),
+                 rng.uniform(-2, 2, (B, A)).astype(np.float32),
+                 rng.normal(-5, 3, B).astype(np.float32),
+                 rng.normal(size=(B, D)).astype(np.float32),
+                 (rng.uniform(size=B) < 0.05).astype(np.float32),
+                 *(rng.normal(size=(B, A)).astype(np.float32)
+                   for _ in range(n_draws))) for _ in range(3)]
+
+    sac0 = sac_init(rm.make_generator(0), D, A, RL_HIDDEN)
+    sac_t = sac_init(rm.make_generator(1), D, A, RL_HIDDEN)
+
+    def sac(dev):
+        p = rm.trainable(rm.detached_copy(sac0), dev)
+        tg = rm.tree_map(lambda t: t.clone().to(dev), sac_t)
+        la = torch.tensor(float(np.log(0.5)), device=dev,
+                          requires_grad=True)
+        opts = (rm.make_adam(p["pi"], 1e-3),
+                rm.make_adam({k: p[k] for k in CRITICS}, 1e-3),
+                rm.make_adam([la], 1e-3))
+        upd = make_sac_update(*opts, 0.99, 0.005, -1.0, 2.0)
+        return (p, tg, [la]), lambda b: upd(p, tg, la, b[:5], b[5:])
+
+    def td3(twin):
+        init = td3_init(rm.make_generator(2), D, A, RL_HIDDEN, twin)
+        target = td3_init(rm.make_generator(3), D, A, RL_HIDDEN, twin)
+
+        def build(dev):
+            p = rm.trainable(rm.detached_copy(init), dev)
+            tg = rm.tree_map(lambda t: t.clone().to(dev), target)
+            upd = make_td3_update(
+                rm.make_adam(p["pi"], 1e-3),
+                rm.make_adam({k: p[k] for k in critic_keys(twin)}, 1e-3),
+                0.99, 0.005, 2.0, twin, 0.2 if twin else 0.0, 0.5)
+            count = [0]
+
+            def step(b):
+                # the delay schedule on the host's counter
+                upd(p, tg, b[:5], count[0] % (2 if twin else 1) == 0, b[5])
+                count[0] += 1
+            return (p, tg), step
+        return build
+
+    return dict(sac=(sac, batches(2)), td3=(td3(True), batches(1)),
+                ddpg=(td3(False), batches(1)))
+
+
+def _rl2_offline_learners(rmt, tmp):
+    """BC, MARWIL and CQL on a CartPole recording that a CPU actor wrote
+    (the expert of the offline tests, then uniform random)."""
+    import numpy as np
+
+    from ray_memory_management_tpu_torch.rllib import models as rm
+    from ray_memory_management_tpu_torch.rllib import sample_batch as sb
+    from ray_memory_management_tpu_torch.rllib.cql import (
+        derive_next_obs, make_cql_update)
+    from ray_memory_management_tpu_torch.rllib.dqn import q_init
+    from ray_memory_management_tpu_torch.rllib.marwil import (
+        episode_returns, make_marwil_update)
+    from ray_memory_management_tpu_torch.rllib.offline import (
+        DatasetReader, collect_dataset, make_bc_update)
+    from ray_memory_management_tpu_torch.rllib.offline import TERMINATED
+
+    @rmt.remote(num_cpus=1)
+    def record(path):
+        def expert(obs):
+            return (1 if obs[2] + 0.3 * obs[3] > 0 else 0), -0.05
+
+        collect_dataset("CartPole", path, num_steps=1500, policy=expert,
+                        env_config={"max_episode_steps": 200}, seed=0)
+        collect_dataset("CartPole", path, num_steps=2500,
+                        env_config={"max_episode_steps": 200}, seed=1)
+        return os.getpid()
+
+    path = os.path.join(tmp, "offline")
+    writer_pid = rmt.get(record.remote(path))
+    if writer_pid == os.getpid():
+        raise AssertionError("rllib2: the dataset was not written by an "
+                             "actor process")
+    reader = DatasetReader(path)
+    d = derive_next_obs(reader.data, reader.recording_starts)
+    ret, valid = episode_returns(reader.data[sb.REWARDS],
+                                 reader.data[sb.DONES], 0.99,
+                                 reader.recording_starts)
+    rng = np.random.default_rng(12)
+    idx = [rng.integers(0, len(ret), 256) for _ in range(3)]
+    cidx = [rng.integers(0, len(d[sb.OBS]), 256) for _ in range(3)]
+    obs, acts = reader.data[sb.OBS], reader.data[sb.ACTIONS].astype(np.int64)
+    pi0 = {"pi": rm.mlp_init(rm.make_generator(4), [4, *RL_HIDDEN, 2])}
+    mw0 = {**pi0, "vf": rm.mlp_init(rm.make_generator(5),
+                                    [4, *RL_HIDDEN, 1])}
+    q0 = q_init(rm.make_generator(6), 4, 2, RL_HIDDEN)
+    qt = q_init(rm.make_generator(7), 4, 2, RL_HIDDEN)
+
+    def bc(dev):
+        p = rm.trainable(rm.detached_copy(pi0), dev)
+        upd = make_bc_update(rm.make_adam(p, 1e-3))
+        return p, lambda b: upd(p, *b)
+
+    def marwil(dev):
+        import torch
+
+        p = rm.trainable(rm.detached_copy(mw0), dev)
+        c = [torch.tensor(1.0, device=dev)]
+        upd = make_marwil_update(rm.make_adam(p, 1e-3), 1.0, 1.0, 1e-2)
+
+        def step(b):
+            c[0], _ = upd(p, c[0], *b)
+        return (p, c), step
+
+    def cql(dev):
+        p = rm.trainable(rm.detached_copy(q0), dev)
+        tg = rm.tree_map(lambda t: t.clone().to(dev), qt)
+        upd = make_cql_update(rm.make_adam(p, 1e-3), 0.99, 1.0)
+        return p, lambda b: upd(p, tg, *b)
+
+    return dict(
+        bc=(bc, [(obs[i], acts[i]) for i in idx]),
+        marwil=(marwil, [(obs[i], acts[i], ret[i], valid[i]) for i in idx]),
+        cql=(cql, [(d[sb.OBS][i], d[sb.ACTIONS][i].astype(np.int64),
+                    d[sb.REWARDS][i], d["next_obs"][i], d[TERMINATED][i])
+                   for i in cidx])), reader.num_samples
+
+
+def _rl2_multi_learners():
+    """QMIX (batches a CPU collector recorded on TwoStepCoop), MADDPG
+    (Rendezvous' shapes, agents stacked [N, ...]), SlateQ (the interest-
+    evolution corpus), R2D2 (sequences a CPU collector recorded on
+    CartPole, burn-in 4) and the MBPETS ensemble (4 x 128 x 128)."""
+    import numpy as np
+    import torch
+
+    from ray_memory_management_tpu_torch.rllib import models as rm
+    from ray_memory_management_tpu_torch.rllib import sample_batch as sb
+    from ray_memory_management_tpu_torch.rllib.maddpg import (
+        maddpg_init, make_maddpg_update)
+    from ray_memory_management_tpu_torch.rllib.mbrl import (
+        make_model_update, mb_init)
+    from ray_memory_management_tpu_torch.rllib.qmix import (
+        QMIX_COLUMNS, QMixRolloutWorker, make_qmix_update, qmix_init)
+    from ray_memory_management_tpu_torch.rllib.r2d2 import (
+        R2D2_COLUMNS, R2D2RolloutWorker, lstm_q_init, make_r2d2_update)
+    from ray_memory_management_tpu_torch.rllib.slateq import (
+        InterestEvolution, _slate_combos, make_slateq_update)
+
+    rng = np.random.default_rng(13)
+    out = {}
+
+    rec = QMixRolloutWorker("TwoStepCoop", None, (64,), seed=0).sample(
+        512, 1.0)
+    q0 = qmix_init(rm.make_generator(8), 5, 2, 2, 3, (64,), 32)
+    qt = qmix_init(rm.make_generator(9), 5, 2, 2, 3, (64,), 32)
+
+    def qmix(dev):
+        p = rm.trainable(rm.detached_copy(q0), dev)
+        tg = rm.tree_map(lambda t: t.clone().to(dev), qt)
+        upd = make_qmix_update(rm.make_adam(p, 5e-4), 0.99, 2, 32)
+        return p, lambda b: upd(p, tg, *b)
+
+    picks = [rng.choice(512, 64, replace=False) for _ in range(3)]
+    out["qmix"] = (qmix, [tuple(rec[k][i].astype(np.int64)
+                                if k == sb.ACTIONS else rec[k][i]
+                                for k in QMIX_COLUMNS) for i in picks])
+
+    N, O, A = 2, 4, 2
+    m0 = maddpg_init(rm.make_generator(10), N, O, A, RL_HIDDEN)
+    mt = maddpg_init(rm.make_generator(11), N, O, A, RL_HIDDEN)
+
+    def maddpg(dev):
+        p = rm.trainable(rm.detached_copy(m0), dev)
+        tg = rm.tree_map(lambda t: t.clone().to(dev), mt)
+        upd = make_maddpg_update(rm.make_adam(p["pi"], 1e-3),
+                                 rm.make_adam(p["q"], 1e-3), 0.95, 0.01, 1.0)
+        return (p, tg), lambda b: upd(p, tg, *b)
+
+    out["maddpg"] = (maddpg, [(
+        rng.uniform(-1, 1, (256, N, O)).astype(np.float32),
+        rng.uniform(-1, 1, (256, N, A)).astype(np.float32),
+        rng.normal(-1, 0.3, (256, N)).astype(np.float32),
+        rng.uniform(-1, 1, (256, N, O)).astype(np.float32),
+        (rng.uniform(size=256) < 0.05).astype(np.float32))
+        for _ in range(3)])
+
+    env = InterestEvolution()
+    combos = _slate_combos(8, env.slate_size)
+    s0 = rm.mlp_init(rm.make_generator(12),
+                     [env.n_topics + env.feat_dim, *RL_HIDDEN, 1])
+    st = rm.mlp_init(rm.make_generator(13),
+                     [env.n_topics + env.feat_dim, *RL_HIDDEN, 1])
+
+    def slateq(dev):
+        p = rm.trainable(rm.detached_copy(s0), dev)
+        tg = rm.tree_map(lambda t: t.clone().to(dev), st)
+        upd = make_slateq_update(rm.make_adam(p, 1e-3), 0.95)
+        feats = torch.as_tensor(env.doc_feats, device=dev)[None].expand(
+            128, -1, -1)
+        cmb = torch.as_tensor(combos, dtype=torch.long, device=dev)
+        return p, lambda b: upd(p, tg, feats, *b, cmb, 8)
+
+    def slate_batch():
+        user = rng.normal(size=(128, env.n_topics)).astype(np.float32)
+        user /= np.linalg.norm(user, axis=1, keepdims=True)
+        nxt = rng.normal(size=(128, env.n_topics)).astype(np.float32)
+        nxt /= np.linalg.norm(nxt, axis=1, keepdims=True)
+        scores = np.exp(nxt @ env.doc_topics.T + env.doc_appeal)
+        return (user, env.doc_feats[rng.integers(0, env.n_docs, 128)],
+                env.doc_quality[rng.integers(0, env.n_docs, 128)],
+                nxt, scores.astype(np.float32),
+                np.zeros(128, np.float32))
+
+    out["slateq"] = (slateq, [slate_batch() for _ in range(3)])
+
+    worker = R2D2RolloutWorker("CartPole", {"max_episode_steps": 200}, None,
+                               seed=0, embed_dim=64, lstm_dim=64)
+    seqs = [worker.sample(20, 1.0) for _ in range(48)]
+    r0 = lstm_q_init(rm.make_generator(14), 4, 2, 64, 64)
+    rt = lstm_q_init(rm.make_generator(15), 4, 2, 64, 64)
+
+    def r2d2(dev):
+        p = rm.trainable(rm.detached_copy(r0), dev)
+        tg = rm.tree_map(lambda t: t.clone().to(dev), rt)
+        upd = make_r2d2_update(rm.make_adam(p, 1e-3), 0.99, 4)
+        return p, lambda b: upd(p, tg, *b)
+
+    out["r2d2"] = (r2d2, [tuple(
+        np.stack([s[k] for s in seqs[16 * j:16 * (j + 1)]]).astype(
+            np.int64 if k == sb.ACTIONS else np.float32)
+        for k in R2D2_COLUMNS) for j in range(3)])
+
+    e0 = mb_init(rm.make_generator(16), 4, 3, 1, (128, 128))
+
+    def model(dev):
+        p = rm.trainable(rm.detached_copy(e0), dev)
+        upd = make_model_update(rm.make_adam(p, 1e-3))
+        return p, lambda b: upd(p, *b)
+
+    out["mbpets_model"] = (model, [(
+        rng.normal(size=(256, 3)).astype(np.float32),
+        rng.uniform(-2, 2, (256, 1)).astype(np.float32),
+        rng.normal(scale=0.1, size=(256, 3)).astype(np.float32),
+        rng.normal(-5, 2, 256).astype(np.float32)) for _ in range(3)])
+    return out
+
+
+def _rl2_plan_parity(device, card_ensemble, cpu_ensemble):
+    """One MBPETS plan (TestMBPETS's settings) on the card and on the CPU
+    from the same ensemble and the same draws: each round must keep the
+    same elites, and the refined mean is held to RL_TOL."""
+    import numpy as np
+    import torch
+
+    from ray_memory_management_tpu_torch.rllib.mbrl import (
+        cem_round, discounts)
+
+    H, P, K, R, A = 25, 256, 16, 5, 1
+    noise = np.random.default_rng(14).normal(
+        size=(R, P, H, A)).astype(np.float32)
+    obs0 = np.array([0.3, -0.9, 0.5], np.float32)
+    runs = []
+    for dev, params in ((device, card_ensemble),
+                        (torch.device("cpu"), cpu_ensemble)):
+        mean = torch.zeros((H, A), device=dev)
+        std = torch.full((H, A), 1.0, device=dev)
+        disc = torch.as_tensor(discounts(H, 0.99), device=dev)
+        tops = []
+        for i in range(R):
+            mean, std, top = cem_round(
+                params, torch.as_tensor(obs0, device=dev), mean, std,
+                torch.as_tensor(noise[i], device=dev), disc, K, 2.0, 1.0)
+            tops.append(sorted(top.tolist()))
+        runs.append((mean, tops))
+    if runs[0][1] != runs[1][1]:
+        raise AssertionError(f"rllib2: the card's CEM elites part from the "
+                             f"CPU's: {runs[0][1]} against {runs[1][1]}")
+    err, over = _rl2_hold("MBPETS plan", [runs[0][0]], [runs[1][0]])
+    return dict(rounds=R, same_elites=True, max_abs_err=err, over=over)
+
+
+def _rl2_az_es_bandit(device):
+    """AlphaZero's update and one batched leaf evaluation; the ES and ARS
+    steps with eps rebuilt on the card from the seeds (bit-equal to the
+    CPU worker's); twenty LinUCB and LinTS selects and updates."""
+    import numpy as np
+    import torch
+
+    from ray_memory_management_tpu_torch.rllib import AlphaZeroConfig
+    from ray_memory_management_tpu_torch.rllib import models as rm
+    from ray_memory_management_tpu_torch.rllib.alphazero import (
+        make_az_update)
+    from ray_memory_management_tpu_torch.rllib.ars import make_ars_update
+    from ray_memory_management_tpu_torch.rllib.bandit import (
+        make_bandit_programs)
+    from ray_memory_management_tpu_torch.rllib.es import (
+        _perturbation, make_es_update, perturbations)
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(15)
+    out = {}
+    # the net AlphaZeroConfig builds: the config's hidden (64, 64)
+    az0 = {"torso_pi": rm.mlp_init(rm.make_generator(17),
+                                   [9, *RL_HIDDEN, 9]),
+           "torso_v": rm.mlp_init(rm.make_generator(18), [9, *RL_HIDDEN, 1])}
+
+    def az(dev):
+        p = rm.trainable(rm.detached_copy(az0), dev)
+        upd = make_az_update(rm.make_adam(p, 3e-3), 1e-4)
+        return p, lambda b: upd(p, *b)
+
+    def az_batch():
+        pi = rng.uniform(size=(128, 9)).astype(np.float32)
+        return (rng.integers(-1, 2, (128, 9)).astype(np.float32),
+                pi / pi.sum(-1, keepdims=True),
+                rng.choice([-1.0, 0.0, 1.0], 128).astype(np.float32))
+
+    out["alphazero"], _ = _rl2_pair(device, "AlphaZero", az,
+                                    [az_batch() for _ in range(3)])
+    leaves = rng.integers(-1, 2, (32, 9)).astype(np.float32)
+    evals = []
+    for dev in (device, cpu):
+        algo = AlphaZeroConfig().resources(device=str(dev)).build()
+        algo.set_weights(rm.params_to_numpy(az0))
+        evals.append(algo._evaluate(leaves))
+        algo.stop()
+    err, over = _rl2_hold("AlphaZero leaf evaluation",
+                          [torch.as_tensor(x) for x in evals[0]],
+                          [torch.as_tensor(x) for x in evals[1]])
+    out["alphazero"]["leaf_eval"] = dict(max_abs_err=err, over=over,
+                                         leaves=len(leaves))
+
+    dim = 4 * 32 + 32 + 32 * 2 + 2  # CartPole's MLP (32,) as ES flattens it
+    seeds = [int(s) for s in rng.integers(0, 1 << 31, 32)]
+    eps_card = perturbations(seeds, dim, device)
+    eps_worker = torch.stack([_perturbation(s, dim) for s in seeds])
+    if not torch.equal(eps_card.cpu(), eps_worker):
+        raise AssertionError("rllib2: eps rebuilt on the card differs from "
+                             "the CPU worker's")
+    theta = rng.normal(scale=0.3, size=dim).astype(np.float32)
+    weights = rng.uniform(-0.5, 0.5, 32).astype(np.float32)
+    pos = rng.normal(60, 20, 16).astype(np.float32)
+    neg = rng.normal(60, 20, 16).astype(np.float32)
+    res = []
+    for dev, eps in ((device, eps_card), (cpu, eps_worker)):
+        es = make_es_update(0.03, 0.1, 0.005)(
+            torch.as_tensor(theta, device=dev), eps,
+            torch.as_tensor(weights, device=dev))
+        ars = make_ars_update(0.3, 0.5)(
+            torch.as_tensor(theta, device=dev), eps[:16],
+            torch.as_tensor(pos, device=dev), torch.as_tensor(neg, device=dev),
+            float(np.std(np.concatenate([pos, neg]))))
+        res.append((es, ars))
+    out["es"] = dict(zip(("max_abs_err", "over"),
+                         _rl2_hold("ES", [res[0][0]], [res[1][0]])),
+                     eps_bit_equal=True, seeds=len(seeds), dim=dim)
+    out["ars"] = dict(zip(("max_abs_err", "over"),
+                          _rl2_hold("ARS", [res[0][1]], [res[1][1]])))
+
+    K, D = 5, 8
+    ctxs = rng.normal(size=(20, D)).astype(np.float32)
+    ctxs /= np.linalg.norm(ctxs, axis=1, keepdims=True)
+    draws = rng.normal(size=(20, K)).astype(np.float32)
+    rewards = rng.normal(size=20).astype(np.float32)
+    for mode in ("ucb", "ts"):
+        init, select, update = make_bandit_programs(K, D, 1.0, 1.0, mode)
+        states = [init(device), init(cpu)]
+        for i in range(20):
+            arms = [int(select(s, torch.as_tensor(ctxs[i], device=dev),
+                               torch.as_tensor(draws[i], device=dev)))
+                    for s, dev in zip(states, (device, cpu))]
+            if arms[0] != arms[1]:
+                raise AssertionError(f"rllib2: bandit {mode} step {i}: "
+                                     f"arm {arms[0]} on the card, "
+                                     f"{arms[1]} on the CPU")
+            for s, dev in zip(states, (device, cpu)):
+                update(s, torch.as_tensor(ctxs[i], device=dev), arms[0],
+                       float(rewards[i]))
+        err, over = _rl2_hold(f"bandit {mode}", states[0], states[1])
+        out[f"bandit_{mode}"] = dict(steps=20, max_abs_err=err, over=over)
+    return out
+
+
+def _rl2_learner_parity(device, rmt, tmp):
+    """Phase 16a: every new learner's update on the card against the same
+    update on the CPU, fp32 with TF32 off."""
+    rows = {}
+    learners = _rl2_offpolicy_learners()
+    rmt.init(num_cpus=2, num_gpus=0)
+    try:
+        offline, n_rows = _rl2_offline_learners(rmt, tmp)
+    finally:
+        rmt.shutdown()
+    learners.update(offline)
+    learners.update(_rl2_multi_learners())
+    trees = {}
+    for name, (build, batches) in learners.items():
+        rows[name], trees[name] = _rl2_pair(device, name, build, batches)
+    rows["offline_rows"] = n_rows
+    # the plan from the ensembles the model-update parity trained
+    rows["mbpets_plan"] = _rl2_plan_parity(device, *trees["mbpets_model"])
+    rows.update(_rl2_az_es_bandit(device))
+    return rows
+
+
+def _rl2_sac_learns(device):
+    """Phase 16b: SAC at TestSAC::test_learns_pendulum's settings, its
+    learner on the card, until the reference rule holds."""
+    from ray_memory_management_tpu_torch.rllib import SACConfig
+
+    algo = (SACConfig()
+            .environment("Pendulum", env_config={"max_episode_steps": 200})
+            .rollouts(num_rollout_workers=0, rollout_fragment_length=200)
+            .training(lr=1e-3, train_batch_size=128, learning_starts=500,
+                      random_steps=500, updates_per_step=200, tau=0.005)
+            .resources(device=str(device))
+            .debugging(seed=1)
+            .build())
+    rows = []
+    try:
+        if algo.log_alpha.device != device:
+            raise AssertionError(f"rllib2: SAC's learner is on "
+                                 f"{algo.log_alpha.device}")
+        for _ in range(RL2_SAC_ITERS):
+            r = algo.train()
+            rows.append({k: r.get(k) for k in (
+                "episode_reward_mean", "num_updates", "alpha",
+                "num_env_steps_sampled", "sample_time_s", "learn_time_s")})
+            rm_ = r.get("episode_reward_mean")
+            if rm_ is not None and rm_ > -700:
+                break
+        trace_step = _rl2_sac_trace_step(algo)
+    finally:
+        algo.stop()
+    last = rows[-1]
+    if not (last["episode_reward_mean"] > -900
+            and last["num_updates"] > 1000 and 0 < last["alpha"] < 0.9):
+        raise AssertionError(f"rllib2: SAC on the card missed "
+                             f"test_learns_pendulum's rule: {last}")
+    learn_s = sum(r["learn_time_s"] for r in rows)
+    steps = sum(r["num_env_steps_sampled"] for r in rows)
+    return dict(iterations=len(rows), last=last,
+                rewards=[r["episode_reward_mean"] for r in rows],
+                updates_per_s=last["num_updates"] / learn_s,
+                env_steps_per_s=steps / sum(r["sample_time_s"] + r[
+                    "learn_time_s"] for r in rows),
+                learn_s=learn_s), trace_step
+
+
+def _rl2_sac_trace_step(algo):
+    """One SAC update of the trained learner on a fixed minibatch of its
+    replay (what phase 16e traces)."""
+    mb = algo.replay.sample(algo.train_batch_size)
+    return lambda: algo.learn_on_minibatch(mb)
+
+
+def _rl2_mbpets_learns(device):
+    """Phase 16c: MBPETS at TestMBPETS's settings with its planner and
+    ensemble on the card; the reference rule, then the save/restore
+    round-trip of the stacked ensemble."""
+    import numpy as np
+
+    from ray_memory_management_tpu_torch.rllib import MBPETSConfig
+    from ray_memory_management_tpu_torch.rllib.models import tree_leaves
+
+    algo = (MBPETSConfig()
+            .environment("Pendulum", env_config={"max_episode_steps": 100})
+            .training(lr=1e-3, horizon=25, population=256, cem_iters=5,
+                      model_updates_per_iter=100, random_steps=1200)
+            .resources(device=str(device))
+            .debugging(seed=3)
+            .build())
+    rows, first = [], None
+    t0 = time.perf_counter()
+    try:
+        for _ in range(RL2_MBPETS_ITERS):
+            r = algo.train()
+            rows.append(r)
+            if first is None and not np.isnan(r["episode_reward_mean"]):
+                first = r["episode_reward_mean"]
+        wall = time.perf_counter() - t0
+        obs = np.asarray(algo._obs, np.float32)
+        trace_step = lambda: algo.plan(obs)  # noqa: E731
+        plans = algo.plans_done
+        blob = algo.save()
+        before = algo.get_weights()
+        # the plan's own time, synchronised (one read back a step)
+        _sync(device)
+        t = time.perf_counter()
+        for _ in range(10):
+            algo.plan(obs)
+        _sync(device)
+        plan_ms = (time.perf_counter() - t) / 10 * 1e3
+    finally:
+        algo.stop()
+    last = rows[-1]
+    if not (last["model_loss"] < 0.05
+            and last["episode_reward_mean"] > first + 100
+            and last["episode_reward_mean"] > -560):
+        raise AssertionError(f"rllib2: MBPETS on the card missed the "
+                             f"reference rule: first {first}, last {last}")
+    algo2 = (MBPETSConfig()
+             .environment("Pendulum", env_config={"max_episode_steps": 100})
+             .resources(device=str(device))
+             .debugging(seed=3)
+             .build())
+    try:
+        algo2.restore(blob)
+        for a, b in zip(tree_leaves(before),
+                        tree_leaves(algo2.get_weights())):
+            if not np.array_equal(a, b):
+                raise AssertionError("rllib2: MBPETS's ensemble did not "
+                                     "round-trip save/restore")
+    finally:
+        algo2.stop()
+    return dict(iterations=len(rows), first=first,
+                last=last["episode_reward_mean"],
+                model_loss=last["model_loss"], plans=plans,
+                plan_ms=plan_ms, env_steps_per_s=len(rows) * 200 / wall,
+                rewards=[r["episode_reward_mean"] for r in rows]), trace_step
+
+
+def _rl2_es_learns(device, rmt):
+    """Phase 16d: ES with 2 CPU rollout actors at
+    test_learns_cartpole_gradient_free's settings, the update on the
+    card."""
+    from ray_memory_management_tpu_torch.rllib import ESConfig
+
+    rmt.init(num_cpus=4, num_gpus=0)
+    try:
+        algo = (ESConfig()
+                .environment("CartPole",
+                             env_config={"max_episode_steps": 200})
+                .rollouts(num_rollout_workers=2)
+                .training(lr=0.03, sigma=0.1, episodes_per_batch=64)
+                .resources(device=str(device))
+                .debugging(seed=3)
+                .build())
+        best, rows = 0.0, []
+        t0 = time.perf_counter()
+        try:
+            if algo.device != device or algo.workers is None:
+                raise AssertionError(f"rllib2: ES's learner is on "
+                                     f"{algo.device}")
+            for _ in range(RL2_ES_ITERS):
+                r = algo.train()
+                rows.append(r["fitness_mean"])
+                best = max(best, r["fitness_mean"])
+                if best > 120:
+                    break
+            steps = r["timesteps_total"]
+        finally:
+            algo.stop()
+        wall = time.perf_counter() - t0
+    finally:
+        rmt.shutdown()
+    if not best > 60:
+        raise AssertionError(f"rllib2: ES on the card missed the rule: "
+                             f"{rows}")
+    return dict(iterations=len(rows), best=best, fitness=rows,
+                env_steps_per_s=steps / wall)
+
+
+def phase_rllib2(device, card):
+    """Phase 16: RLlib's second half on the card (see the module
+    docstring). The flash kernels' launch counts are zeroed at the start
+    and must read 0 at the end: no RLlib path reaches them."""
+    import shutil
+    import tempfile
+
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        launch_counts, reset_launch_count)
+
+    t_phase = time.perf_counter()
+    reset_launch_count()
+    tmp = tempfile.mkdtemp(prefix="rllib2_")
+    try:
+        parity = _rl2_learner_parity(device, rmt, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[rllib2] {card}: (a) learner parity, card against CPU, fp32, "
+        f"TF32 off, tolerance {RL_TOL[0]:g} * max|leaf| + {RL_TOL[1]:g}, "
+        f"3 updates each; updates/s on the card (each synchronised): "
+        + json.dumps(parity, default=str))
+    sac, sac_step = _rl2_sac_learns(device)
+    log(f"[rllib2] {card}: (b) SAC (test_learns_pendulum's settings), "
+        f"learner on {device}: episode_reward_mean {sac['rewards']} "
+        f"({sac['iterations']} iterations; rule > -900, num_updates "
+        f"{sac['last']['num_updates']} > 1000, 0 < alpha "
+        f"{sac['last']['alpha']:.4f} < 0.9); updates_per_s="
+        f"{sac['updates_per_s']:.1f} env_steps_per_s="
+        f"{sac['env_steps_per_s']:.1f} learn_s={sac['learn_s']:.2f}")
+    mb, plan_step = _rl2_mbpets_learns(device)
+    log(f"[rllib2] {card}: (c) MBPETS (TestMBPETS's settings), planner and "
+        f"ensemble on {device}: episode_reward_mean {mb['rewards']} (rule "
+        f"> first {mb['first']:.1f} + 100 and > -560; model_loss "
+        f"{mb['model_loss']:.4f} < 0.05); {mb['plans']} plans, "
+        f"plan_ms={mb['plan_ms']:.3f} env_steps_per_s="
+        f"{mb['env_steps_per_s']:.2f}; ensemble save/restore round-trip "
+        f"held")
+    es = _rl2_es_learns(device, rmt)
+    log(f"[rllib2] {card}: (d) ES, 2 CPU rollout actors, update on "
+        f"{device}: fitness_mean {es['fitness']} (best {es['best']:.1f} > "
+        f"60); env_steps_per_s={es['env_steps_per_s']:.1f}")
+    sac_trace = plan_trace = {}
+    if device.type == "cuda":
+        sac_trace = _rl_update_trace(sac_step, reps=20)
+        plan_trace = _rl_update_trace(plan_step, reps=5)
+        log(f"[rllib2] {card}: (e) a SAC update (minibatch 128) traced 20 "
+            f"times: {sac_trace['kernels_per_update']:.1f} kernels, device "
+            f"{sac_trace['device_ms']:.4f} ms of "
+            f"{sac_trace['traced_wall_ms']:.3f} ms wall (idle "
+            f"{sac_trace['idle_share']:.3f}); an MBPETS plan traced 5 "
+            f"times: {plan_trace['kernels_per_update']:.1f} kernels, device "
+            f"{plan_trace['device_ms']:.4f} ms of "
+            f"{plan_trace['traced_wall_ms']:.3f} ms wall (idle "
+            f"{plan_trace['idle_share']:.3f})")
+    launches = launch_counts()
+    log(f"[rllib2] (e) flash kernel launches over phase 16: {launches} "
+        f"(RLlib's nets reach no kernel)")
+    if any(launches.values()):
+        raise AssertionError(f"rllib2: flash kernels launched {launches}")
+    segs, procs = _leftovers()
+    if segs or procs:
+        raise AssertionError(f"rllib2: left behind shm {segs} and "
+                             f"processes {procs}")
+    phase_s = time.perf_counter() - t_phase
+    rates = " ".join(f"{k}={v['updates_per_s']:.1f}"
+                     for k, v in parity.items()
+                     if isinstance(v, dict) and "updates_per_s" in v)
+    figures = (
+        f"[rllib2] {card}: phase_s={phase_s:.1f} updates_per_s_card: "
+        f"{rates} sac_iterations={sac['iterations']} sac_updates_per_s="
+        f"{sac['updates_per_s']:.1f} sac_env_steps_per_s="
+        f"{sac['env_steps_per_s']:.1f} sac_update_kernels="
+        f"{sac_trace.get('kernels_per_update')} sac_update_device_ms="
+        f"{sac_trace.get('device_ms')} sac_update_wall_ms="
+        f"{sac_trace.get('traced_wall_ms')} sac_update_idle="
+        f"{sac_trace.get('idle_share')} mbpets_plan_ms={mb['plan_ms']:.3f} "
+        f"mbpets_plan_kernels={plan_trace.get('kernels_per_update')} "
+        f"mbpets_plan_device_ms={plan_trace.get('device_ms')} "
+        f"mbpets_plan_wall_ms={plan_trace.get('traced_wall_ms')} "
+        f"mbpets_plan_idle={plan_trace.get('idle_share')} "
+        f"mbpets_env_steps_per_s={mb['env_steps_per_s']:.2f} "
+        f"es_env_steps_per_s={es['env_steps_per_s']:.1f}")
+    log(figures)
+    return dict(phase_s=phase_s, parity=parity, sac=sac, mbpets=mb, es=es,
+                sac_trace=sac_trace, plan_trace=plan_trace,
+                launches=launches, figures=figures)
+
+
 def main() -> int:
     import torch
 
@@ -3781,6 +4528,8 @@ def main() -> int:
     surfaces = timed("surfaces", phase_surfaces, device, card)
     torch.cuda.empty_cache()
     rllib = timed("rllib", phase_rllib, device, card)
+    torch.cuda.empty_cache()
+    rllib2 = timed("rllib2", phase_rllib2, device, card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -3794,7 +4543,8 @@ def main() -> int:
         "runtime": runtime, "serve_plane": plane,
         "multinode": multinode, "train_plane": train_plane, "moe": moe,
         "pipeline": pipeline, "vision": vision, "data_tune": data_tune,
-        "surfaces": surfaces, "rllib": rllib}}, default=str))
+        "surfaces": surfaces, "rllib": rllib, "rllib2": rllib2}},
+        default=str))
     # the runtime's, the serve plane's and the multi-node figures again,
     # where the end of the output keeps them
     log(runtime["figures"])
@@ -3804,6 +4554,7 @@ def main() -> int:
     log(data_tune["figures"])
     log(surfaces["figures"])
     log(rllib["figures"])
+    log(rllib2["figures"])
     log(f"[phases] {card}: total_s={total_s:.1f} " + " ".join(
         f"{k}={v:.1f}" for k, v in phases_s.items()))
     src = "ray_memory_management_tpu_torch/csrc/"
@@ -3883,6 +4634,8 @@ def main() -> int:
         "launches_tier_affine_replica": surfaces["replica"]["launches"],
         # phase 15: RLlib's learners, rollouts and bench reach no kernel
         "launches_rllib": rllib["launches"]["flash_attention_fwd"],
+        # phase 16: RLlib's second half reaches no kernel either
+        "launches_rllib2": rllib2["launches"]["flash_attention_fwd"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",
@@ -3900,6 +4653,7 @@ def main() -> int:
         "launches_tune_trial": data_tune["tune"]["launches"][
             "flash_attention_dq"],
         "launches_rllib": rllib["launches"]["flash_attention_dq"],
+        "launches_rllib2": rllib2["launches"]["flash_attention_dq"],
         "max_abs_err": bwd["dq"],
         "ms": bwd["dq_ms"],
         "plain_ms": bwd["dq_plain_ms"],
@@ -3934,6 +4688,7 @@ def main() -> int:
         "launches_tune_trial": data_tune["tune"]["launches"][
             "flash_attention_dkv"],
         "launches_rllib": rllib["launches"]["flash_attention_dkv"],
+        "launches_rllib2": rllib2["launches"]["flash_attention_dkv"],
         "max_abs_err": max(bwd["dk"], bwd["dv"]),
         "ms": bwd["dkv_ms"],
         "plain_ms": bwd["dkv_plain_ms"],

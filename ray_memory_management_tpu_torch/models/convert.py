@@ -133,10 +133,14 @@ def vit_state_from_flax(params):
 def rl_params_from_jax(tree, device: Optional[Union[str, torch.device]] = None
                        ) -> Any:
     """An RLlib net's tree — the actor-critic ``{"pi": [{"w", "b"}, ...],
-    "vf": [...]}``, DQN's ``{"q": [...]}`` or the LSTM policy's
-    ``{"embed", "lstm": {"w", "b"}, "pi", "vf"}`` — as the same tree of
+    "vf": [...]}``, DQN's ``{"q": [...]}``, the LSTM policy's
+    ``{"embed", "lstm": {"w", "b"}, "pi", "vf"}``, SAC's and TD3's
+    ``{"pi", "q1", "q2"}``, QMIX's agent net and hypernetworks, SlateQ's
+    bare layer list, MBPETS's ensemble and MADDPG's agents stacked along
+    a leading ``[E, ...]`` or ``[N, ...]`` axis — as the same tree of
     fp32 tensors on ``device``. The port's layers compute ``x @ w + b``
-    as the JAX ones do, so no leaf is transposed."""
+    as the JAX ones do (stacked ones as batched matmuls), so no leaf is
+    transposed."""
     device = resolve_device(device)
 
     def walk(node):
@@ -172,7 +176,7 @@ def _find_adam(state):
     return None
 
 
-def adam_state_from_optax(opt_state) -> Dict[str, Any]:
+def adam_state_from_optax(opt_state, select=None) -> Dict[str, Any]:
     """``optax.adam``'s state (``(ScaleByAdamState(count, mu, nu), ...)``,
     with numpy or JAX leaves) as ``torch.optim.Adam``'s per-parameter
     state: ``{"state": {i: {"step", "exp_avg", "exp_avg_sq"}}}`` with
@@ -180,15 +184,47 @@ def adam_state_from_optax(opt_state) -> Dict[str, Any]:
     ``rllib.models.make_adam`` hands its leaves to the optimizer).
     ``mu`` becomes ``exp_avg``, ``nu`` ``exp_avg_sq``, ``count`` ``step``:
     both libraries bump the count before the bias correction, so the next
-    step of either divides by the same ``1 - beta ** (count + 1)``."""
+    step of either divides by the same ``1 - beta ** (count + 1)``.
+
+    ``select`` names the top-level keys of the tree the optax state spans
+    whose leaves the port's optimizer holds: SAC's and TD3's critic
+    optimizers span the whole ``{"pi", "q1", "q2"}`` tree in JAX (the
+    ``pi`` entries never move), the port's hold ``("q1", "q2")`` only.
+    The leaves may be stacked (``[E, ...]`` ensembles, ``[N, ...]``
+    agents) or scalars (SAC's ``log_alpha``)."""
     adam = _find_adam(opt_state)
     if adam is None:
         raise ValueError("no ScaleByAdamState (count, mu, nu) in the "
                          "optimizer state")
     step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
-    mus, nus = _sorted_leaves(adam.mu), _sorted_leaves(adam.nu)
+    mu, nu = adam.mu, adam.nu
+    if select is not None:
+        mu = {k: mu[k] for k in select}
+        nu = {k: nu[k] for k in select}
+    mus, nus = _sorted_leaves(mu), _sorted_leaves(nu)
     return {"state": {
         i: {"step": step.clone(),
             "exp_avg": torch.tensor(np.asarray(m), dtype=torch.float32),
             "exp_avg_sq": torch.tensor(np.asarray(v), dtype=torch.float32)}
         for i, (m, v) in enumerate(zip(mus, nus))}}
+
+
+def rl_opt_states_from_jax(opt_states, selects) -> list:
+    """Several optimizer states at once (SAC's actor, critic and
+    temperature states, TD3's actor and critic states), each
+    either the port's own (``{"state": ...}``, kept as it is) or an optax
+    state converted by ``adam_state_from_optax`` with its ``select``."""
+    out = []
+    for state, select in zip(opt_states, selects):
+        if isinstance(state, dict) and "state" in state:
+            out.append(state)
+        else:
+            out.append(adam_state_from_optax(state, select))
+    return out
+
+
+def flat_params_from_jax(theta) -> np.ndarray:
+    """The flat fp32 parameter vector of ES and ARS (the leaves of the
+    policy's tree, raveled in flatten order and concatenated; the same
+    layout in both packages)."""
+    return np.asarray(theta, np.float32).ravel().copy()

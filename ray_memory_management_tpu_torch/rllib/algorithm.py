@@ -27,7 +27,7 @@ from ..utils.device import resolve_device
 from .env import make_env
 from .models import (
     ac_apply, ac_init, copy_into, make_generator, params_to_numpy,
-    tree_map,
+    trainable,
 )
 from .rollout_worker import RolloutWorker, WorkerSet
 
@@ -194,8 +194,7 @@ class Algorithm(Trainable):
     def _to_learner(self, params):
         """A CPU-initialised tree as trainable leaves on the learner's
         device."""
-        return tree_map(
-            lambda t: t.to(self.device).requires_grad_(True), params)
+        return trainable(params, self.device)
 
     # -- subclass hook ---------------------------------------------------------
     def training_step(self) -> Dict[str, Any]:

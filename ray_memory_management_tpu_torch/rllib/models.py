@@ -135,6 +135,60 @@ def sample_actions(params: Dict[str, Any], obs, generator: torch.Generator):
     return actions, logp, values
 
 
+def stacked_mlp_init(generator: torch.Generator, n: int,
+                     sizes: Sequence[int]) -> List[Dict[str, torch.Tensor]]:
+    """``n`` independent MLPs (an ensemble, or one net per agent) with
+    every leaf stacked along a leading axis: ``w`` [n, fan_in, fan_out],
+    ``b`` [n, fan_out] (the layout of a ``jax.vmap``-ed ``mlp_init``)."""
+    members = [mlp_init(generator, sizes) for _ in range(n)]
+    return [{k: torch.stack([m[i][k] for m in members])
+             for k in ("w", "b")} for i in range(len(sizes) - 1)]
+
+
+def stacked_mlp_apply(params: List[Dict[str, torch.Tensor]],
+                      x: torch.Tensor) -> torch.Tensor:
+    """``mlp_apply`` of each stacked member on its own slice: x [n, B, in]
+    (or one [B, in] shared by every member) -> [n, B, out], as batched
+    matmuls."""
+    for i, layer in enumerate(params):
+        x = torch.matmul(x, layer["w"]) + layer["b"][:, None, :]
+        if i < len(params) - 1:
+            x = torch.relu(x)
+    return x
+
+
+def trainable(tree, device) -> Any:
+    """A CPU-initialised tree as leaf tensors on ``device`` that require
+    gradients."""
+    return tree_map(lambda t: t.to(device).requires_grad_(True), tree)
+
+
+def detached_copy(tree) -> Any:
+    """A copy of the tree that never takes gradients (a target net)."""
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+@torch.no_grad()
+def polyak_(target, params, tau: float) -> None:
+    """``target <- (1 - tau) * target + tau * params``, leaf by leaf, in
+    place."""
+    t, p = tree_leaves(target), tree_leaves(params)
+    torch._foreach_mul_(t, 1.0 - tau)
+    torch._foreach_add_(t, [x.detach() for x in p], alpha=tau)
+
+
+def step_on(optimizer: torch.optim.Optimizer, loss: torch.Tensor,
+            leaves: List[torch.Tensor]) -> None:
+    """One optimizer step on the gradient of ``loss`` with respect to
+    ``leaves`` only (the leaves the optimizer holds): no other leaf's
+    gradient is computed or kept, so several optimizers over one tree
+    never see each other's gradients."""
+    grads = torch.autograd.grad(loss, leaves)
+    for leaf, g in zip(leaves, grads):
+        leaf.grad = g
+    optimizer.step()
+
+
 def make_adam(params, lr: float) -> torch.optim.Adam:
     """``optax.adam(lr)``'s update rule (b1 0.9, b2 0.999, eps 1e-8) over
     the tree's leaves, in tree-flatten order."""

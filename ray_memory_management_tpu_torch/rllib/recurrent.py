@@ -97,11 +97,12 @@ def lstm_ac_step(params, obs, h, c):
     return logits, value, h, c
 
 
-def lstm_ac_seq(params, obs_seq, dones, h0, c0):
-    """Unroll over sequences obs [..., T, D] with dones [..., T] and
-    initial states [..., H]; the state RESETS after any step flagged
-    done, replaying exactly what the rollout worker did. Returns (logits
-    [..., T, A], values [..., T]).
+def lstm_unroll(params, obs_seq, dones, h0, c0):
+    """The embedding and the cell over sequences obs [..., T, D] with
+    dones [..., T] from initial states [..., H]; the state RESETS after
+    any step flagged done, replaying exactly what the rollout worker did.
+    Returns (h of every step [..., T, H], the final (h, c) after its
+    reset mask, as a scan's carry).
 
     The embedding and the input half of the cell's product run once for
     all steps; the loop carries only ``h @ w_h``: the same sums as
@@ -119,7 +120,13 @@ def lstm_ac_seq(params, obs_seq, dones, h0, c0):
         hs.append(h)
         mask = keep[..., t, None]
         h, c = h * mask, c * mask
-    hs = torch.stack(hs, dim=-2)                         # [..., T, H]
+    return torch.stack(hs, dim=-2), (h, c)
+
+
+def lstm_ac_seq(params, obs_seq, dones, h0, c0):
+    """``lstm_unroll`` then the heads: (logits [..., T, A], values
+    [..., T])."""
+    hs, _ = lstm_unroll(params, obs_seq, dones, h0, c0)
     logits = mlp_apply(params["pi"], hs)
     values = mlp_apply(params["vf"], hs)[..., 0]
     return logits, values
