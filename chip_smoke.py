@@ -311,10 +311,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 are printed. (b) SAC at ``TestSAC::test_learns_pendulum``'s
                 settings, learner on the card, meets its rule
                 (episode_reward_mean > -900, > 1000 updates, 0 < alpha <
-                0.9) within 80 iterations. (c) MBPETS at ``TestMBPETS``'s
-                settings, planner and ensemble on the card, meets its
-                rule (model_loss < 0.05, the last reward above the first
-                + 100 and above -560) and its ensemble round-trips
+                0.9) within 80 iterations, stopping at the first that
+                meets it. (c) MBPETS at ``TestMBPETS``'s settings,
+                planner and ensemble on the card, meets its rule
+                (model_loss < 0.05, the reward above the first + 100 and
+                above -560) within its 22 iterations, stopping at the
+                first that meets it, and its ensemble round-trips
                 save/restore. (d) ES with 2 CPU rollout actors at
                 ``test_learns_cartpole_gradient_free``'s settings, the
                 update on the card, reaches best > 60. (e) 20 SAC
@@ -322,6 +324,35 @@ Phases, each of which must pass (any failure exits non-zero):
                 (kernels, device ms, idle share); the flash kernels'
                 launch counts, zeroed at the phase's start, read 0 at
                 its end. Nothing is left after ``rmt.shutdown()``.
+  17. harnesses — the measurement harnesses of ``utils/`` on the card.
+                (a) Each flash kernel at BH = 4, D = 128, bf16, causal, S
+                = 4096 and 8192 against its plain version by phase 2's
+                rules (forward 1e-2, lse atol 1e-3; backward 2^-8 * |ref|
+                + 1e-3 * max|ref|), every launch wgmma, each timed beside
+                its plain version, SDPA and its bound; then
+                ``gpu_bench.flash_attention_bench`` at its defaults (S =
+                1024, 4096, 8192: the loss sum(o^2) and its gradients a
+                step, kernels against the plain version) with the launch
+                counts zeroed just before and read just after (3 x 9 of
+                each kernel, all wgmma), beside SDPA in the same loop. (b)
+                ``gpu_bench.llm_serving_bench`` at its defaults
+                (gpt2-small, 32 requests of 128 tokens, Poisson arrivals,
+                continuous and barrier batching through handle -> router
+                -> a ``num_gpus=1`` replica, ``ServedLLM`` in place of
+                ``LLMServer``): every request gets its budget of
+                in-vocabulary ids, KV pages back at 0, the replica's
+                forward launches > 0 and all wgmma. (c)
+                ``serve_bench.run_serve_suite(mini=True)``: paged slots
+                > slab slots, ratio >= 1.5, the open-loop p50/p99. (d)
+                ``device_bench.run_device_suite(payload_mb=64)`` on CUDA
+                tensors: ``bytes_avoided_mb`` > 0, the zero-copy speedup
+                printed beside its 10x bar (a miss is printed, not
+                failed). (e) ``rmt-torch microbenchmark --scale 0.05``
+                and the transfer, compression, locality, tracing,
+                logging, profile, health, elastic, job-plane, scale and
+                pod harnesses at their CPU tests' sizes, one line each.
+                (f) ``allreduce_busbw()``: None on one card. Nothing is
+                left behind.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -4221,9 +4252,25 @@ def _rl2_learner_parity(device, rmt, tmp):
     return rows
 
 
+def _sac_rule(row) -> bool:
+    """TestSAC::test_learns_pendulum's rule on one iteration's row."""
+    reward = row["episode_reward_mean"]
+    return (reward is not None and reward > -900
+            and row["num_updates"] > 1000 and 0 < row["alpha"] < 0.9)
+
+
+def _mbpets_rule(row, first) -> bool:
+    """TestMBPETS's rule on one iteration's row, against the first
+    finite reward."""
+    return (first is not None and row["model_loss"] < 0.05
+            and row["episode_reward_mean"] > first + 100
+            and row["episode_reward_mean"] > -560)
+
+
 def _rl2_sac_learns(device):
     """Phase 16b: SAC at TestSAC::test_learns_pendulum's settings, its
-    learner on the card, until the reference rule holds."""
+    learner on the card, until the reference rule holds (at most
+    RL2_SAC_ITERS iterations)."""
     from ray_memory_management_tpu_torch.rllib import SACConfig
 
     algo = (SACConfig()
@@ -4244,15 +4291,13 @@ def _rl2_sac_learns(device):
             rows.append({k: r.get(k) for k in (
                 "episode_reward_mean", "num_updates", "alpha",
                 "num_env_steps_sampled", "sample_time_s", "learn_time_s")})
-            rm_ = r.get("episode_reward_mean")
-            if rm_ is not None and rm_ > -700:
+            if _sac_rule(rows[-1]):
                 break
         trace_step = _rl2_sac_trace_step(algo)
     finally:
         algo.stop()
     last = rows[-1]
-    if not (last["episode_reward_mean"] > -900
-            and last["num_updates"] > 1000 and 0 < last["alpha"] < 0.9):
+    if not _sac_rule(last):
         raise AssertionError(f"rllib2: SAC on the card missed "
                              f"test_learns_pendulum's rule: {last}")
     learn_s = sum(r["learn_time_s"] for r in rows)
@@ -4274,7 +4319,8 @@ def _rl2_sac_trace_step(algo):
 
 def _rl2_mbpets_learns(device):
     """Phase 16c: MBPETS at TestMBPETS's settings with its planner and
-    ensemble on the card; the reference rule, then the save/restore
+    ensemble on the card, until the reference rule holds (at most
+    TestMBPETS's RL2_MBPETS_ITERS iterations); then the save/restore
     round-trip of the stacked ensemble."""
     import numpy as np
 
@@ -4296,6 +4342,8 @@ def _rl2_mbpets_learns(device):
             rows.append(r)
             if first is None and not np.isnan(r["episode_reward_mean"]):
                 first = r["episode_reward_mean"]
+            if _mbpets_rule(r, first):
+                break
         wall = time.perf_counter() - t0
         obs = np.asarray(algo._obs, np.float32)
         trace_step = lambda: algo.plan(obs)  # noqa: E731
@@ -4312,9 +4360,7 @@ def _rl2_mbpets_learns(device):
     finally:
         algo.stop()
     last = rows[-1]
-    if not (last["model_loss"] < 0.05
-            and last["episode_reward_mean"] > first + 100
-            and last["episode_reward_mean"] > -560):
+    if not _mbpets_rule(last, first):
         raise AssertionError(f"rllib2: MBPETS on the card missed the "
                              f"reference rule: first {first}, last {last}")
     algo2 = (MBPETSConfig()
@@ -4468,6 +4514,420 @@ def phase_rllib2(device, card):
                 launches=launches, figures=figures)
 
 
+LONG_BH, LONG_D = 4, 128      # flash_attention_bench's heads and head dim
+LONG_SEQS = (4096, 8192)      # its sequence lengths past phase 2's
+SERVE_BENCH_VOCAB = 50_304    # gpt2-small's vocabulary
+ZERO_COPY_BAR = 10.0          # the device suite's zero-copy bar at 64 MB
+
+
+def _long_kernel_cases(device, card):
+    """Phase 17 (a), first half: each kernel at BH = 4, D = 128, bf16,
+    causal, S in LONG_SEQS against its plain version by phase 2's rules,
+    every launch wgmma; each timed (profiler device time) beside its
+    plain version, SDPA (the forward, and the backward of the pair) and
+    its bound. Returns {S: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        DKV, DQ, WGMMA, bwd_design_counts, flash_attention_bwd,
+        flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
+        fwd_design_counts, reference_attention, reference_delta,
+        reference_flash_bwd, reference_flash_dkv, reference_flash_dq,
+        reference_lse, reset_launch_count)
+    from ray_memory_management_tpu_torch.utils.gpu_bench import (
+        flash_bench_inputs)
+
+    one_wgmma = {WGMMA: 1, "simt": 0}
+    rows = {}
+    for s in LONG_SEQS:
+        q, k, v = flash_bench_inputs(LONG_BH, s, LONG_D, device)
+        gen = torch.Generator().manual_seed(1)
+        do = torch.randn(LONG_BH, s, LONG_D, generator=gen).to(
+            torch.bfloat16).to(device)
+        reset_launch_count()
+        o, lse = flash_attention_fwd(q, k, v, causal=True, save_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        designs = {"fwd": fwd_design_counts(), **bwd_design_counts()}
+        design_ok = (designs["fwd"] == one_wgmma and designs[DQ] == one_wgmma
+                     and designs[DKV] == one_wgmma)
+        ref = reference_attention(q.float(), k.float(), v.float(), True)
+        ref_lse = reference_lse(q.float(), k.float(), True)
+        tol = TOL["bfloat16"]
+        fwd_err = (o.float() - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        fwd_ok = bool(torch.allclose(o.float(), ref, atol=tol, rtol=tol)
+                      and torch.allclose(lse, ref_lse, **LSE_TOL))
+        del ref, ref_lse
+        want = reference_flash_bwd(q.float(), k.float(), v.float(),
+                                   o.float(), lse, do.float(), True)
+        checks = [bwd_close(g, w, "bfloat16") for g, w in zip(got, want)]
+        del want, got
+        ok = fwd_ok and design_ok and all(c[2] for c in checks)
+        delta = reference_delta(o, do)
+        row = dict(BH=LONG_BH, S=s, D=LONG_D, dtype="bfloat16", causal=True,
+                   designs=designs, ok=ok, fwd_max_abs_err=fwd_err,
+                   lse_max_abs_err=lse_err,
+                   **{f"d{n}": c[0] for n, c in zip("qkv", checks)},
+                   **{f"d{n}_over_limit": c[1]
+                      for n, c in zip("qkv", checks)})
+        if ok:
+            row["fwd_ms"] = device_ms(lambda: flash_attention_fwd(
+                q, k, v, causal=True, save_lse=True))[0]
+            row["dq_ms"] = device_ms(lambda: flash_attention_dq(
+                q, k, v, do, lse, delta, True))[0]
+            row["dkv_ms"] = device_ms(lambda: flash_attention_dkv(
+                q, k, v, do, lse, delta, True))[0]
+            row["fwd_plain_ms"] = device_ms(
+                lambda: (reference_attention(q, k, v, True),
+                         reference_lse(q, k, True)), reps=3)[0]
+            row["dq_plain_ms"] = device_ms(lambda: reference_flash_dq(
+                q, k, v, do, lse, delta, True), reps=3)[0]
+            row["dkv_plain_ms"] = device_ms(lambda: reference_flash_dkv(
+                q, k, v, do, lse, delta, True), reps=3)[0]
+            shape = (1, LONG_BH, s, LONG_D)
+            row["fwd_library_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q.view(shape), k.view(shape), v.view(shape),
+                    is_causal=True))[0]
+            leaves = [t.view(shape).detach().requires_grad_()
+                      for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            row["pair_library_ms"] = device_ms(
+                lambda: torch.autograd.grad(out, leaves, do.view(shape),
+                                            retain_graph=True))[0]
+            del out, leaves
+            row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound(
+                LONG_BH, s, s, LONG_D, True, "bfloat16", 2,
+                save_lse=True)[:2]
+            for kernel in ("dq", "dkv"):
+                row[f"{kernel}_bound_ms"], row[f"{kernel}_bound_by"] = (
+                    backward_bound(kernel, LONG_BH, s, s, LONG_D, True,
+                                   "bfloat16", 2)[:2])
+        rows[s] = row
+        log(f"[harnesses] {card}: (a) kernels at BH={LONG_BH} S={s} "
+            f"D={LONG_D} bf16 causal: designs {designs}; fwd max_abs_err="
+            f"{fwd_err:.3e} (tol {tol:g}) lse_err={lse_err:.2e}; backward "
+            f"max_abs_err " + " ".join(
+                f"d{n}={c[0]:.3e}" for n, c in zip("qkv", checks))
+            + " err/limit " + " ".join(f"{c[1]:.3f}" for c in checks)
+            + f" {'ok' if ok else 'FAIL'}" + ("; ms: " + " ".join(
+                f"{n} {row[f'{n}_ms']:.4f} (plain {row[f'{n}_plain_ms']:.4f},"
+                f" bound {row[f'{n}_bound_ms']:.5f} {row[f'{n}_bound_by']})"
+                for n in ("fwd", "dq", "dkv"))
+                + f"; sdpa fwd {row['fwd_library_ms']:.4f} sdpa bwd pair "
+                f"{row['pair_library_ms']:.4f}" if ok else ""))
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    bad = [r for r in rows.values() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"harnesses: the flash kernels disagree with "
+                             f"their plain versions or took another design "
+                             f"at the bench's shapes: {bad}")
+    return rows
+
+
+def _flash_bench(device, card):
+    """Phase 17 (a), second half: ``flash_attention_bench`` at its
+    defaults with the launch counts zeroed just before and read just
+    after (each S: one warm-up and 8 timed steps through the kernels, all
+    wgmma; the plain route launches none), beside SDPA in the same loop
+    (a yardstick outside the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        DKV, DQ, WGMMA, bwd_design_counts, fwd_design_counts,
+        launch_counts, reset_launch_count)
+    from ray_memory_management_tpu_torch.utils import gpu_bench
+
+    iters = 8
+    reset_launch_count()
+    bench = gpu_bench.flash_attention_bench(iters=iters)
+    launches = launch_counts()
+    designs = {"fwd": fwd_design_counts(), **bwd_design_counts()}
+    want = len(bench) * (iters + 1)
+    if (sorted(bench) != [1024, *LONG_SEQS]
+            or any(n != want for n in launches.values())
+            or any(d != {WGMMA: want, "simt": 0} for d in designs.values())):
+        raise AssertionError(f"harnesses: flash_attention_bench ran "
+                             f"{sorted(bench)}, launches {launches}, "
+                             f"designs {designs} (want {want} wgmma each)")
+    timer = gpu_bench.loop_timer(device)
+    for s, row in bench.items():
+        q, k, v = gpu_bench.flash_bench_inputs(LONG_BH, s, LONG_D, device)
+        shape = (1, LONG_BH, s, LONG_D)
+        state = {"q": q, "acc": torch.zeros((), device=device)}
+
+        def sdpa_step():
+            leaves = [t.detach().requires_grad_()
+                      for t in (state["q"], k, v)]
+            o = F.scaled_dot_product_attention(
+                *(t.view(shape) for t in leaves), is_causal=True)
+            dq, _, dv = torch.autograd.grad(torch.sum(o.float() ** 2),
+                                            leaves)
+            state["q"] = state["q"] + 1e-6 * dq
+            state["acc"] = state["acc"] + torch.sum(dv.float())
+
+        row["sdpa_ms"] = timer(sdpa_step, iters)
+        del q, k, v, state
+        torch.cuda.empty_cache()
+        log(f"[harnesses] {card}: (a) flash_attention_bench S={s} "
+            f"BH={LONG_BH} D={LONG_D} bf16 causal, loss sum(o^2) and its "
+            f"gradients a step: flash_ms={row['flash_ms']:.4f} "
+            f"ref_ms={row['ref_ms']:.4f} speedup={row['speedup']:.2f} "
+            f"sdpa_ms={row['sdpa_ms']:.4f} (CUDA events)")
+    log(f"[harnesses] (a) the bench's kernel launches {launches}, designs "
+        f"{designs}")
+    return dict(bench=bench, launches=launches)
+
+
+def _serving_bench(card):
+    """Phase 17 (b): ``llm_serving_bench`` at its defaults (gpt2-small,
+    32 requests, Poisson arrivals, both batching modes), its replica a
+    ``ServedLLM``: every request gets its budget (the barrier mode the
+    deployment's whole budget) of in-vocabulary ids, KV pages back at 0,
+    the replica's forward launches > 0 and all wgmma."""
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch.utils import gpu_bench
+
+    max_new = 64
+    seen = {}
+
+    def on_mode(mode, handle, budgets, replies):
+        c = rmt.get(handle.counters.remote(), timeout=60)
+        lens = [len(r) for r in replies]
+        want = budgets if mode == "continuous" else [max_new] * len(budgets)
+        fwd = c["launches"]["flash_attention_fwd"]
+        pages = (c["stats"]["kv"]["pages_in_use"] if mode == "continuous"
+                 else 0)
+        bad = [t for r in replies for t in r
+               if not 0 <= t < SERVE_BENCH_VOCAB]
+        seen[mode] = dict(launches=fwd, designs=c["designs"], pages=pages,
+                          requests=len(replies), tokens=sum(lens))
+        if (lens != want or bad or pages or fwd <= 0
+                or c["designs"] != {"wgmma": fwd, "simt": 0}):
+            raise AssertionError(
+                f"harnesses: llm_serving_bench ({mode}) reply lengths "
+                f"{lens} (want {want}), out-of-vocabulary ids {bad[:8]}, "
+                f"pages_in_use {pages}, forward launches {fwd} "
+                f"{c['designs']}")
+
+    out = gpu_bench.llm_serving_bench(max_new_tokens=max_new,
+                                      app_wrapper=_served, on_mode=on_mode)
+    log(f"[harnesses] {card}: (b) llm_serving_bench gpt2-small, 32 "
+        f"requests of 128 tokens, budgets 64/16, Poisson gaps of 0.05 s: "
+        f"decode_tokens_per_s={out['decode_tokens_per_s']:.1f} "
+        f"decode_tokens_per_s_barrier="
+        f"{out['decode_tokens_per_s_barrier']:.1f} continuous_vs_barrier="
+        f"{out['continuous_vs_barrier']:.3f} requests_per_s="
+        f"{out['requests_per_s']:.2f} decode_steps="
+        f"{out.get('decode_steps')}; replica {seen}")
+    return dict(out, replica=seen)
+
+
+def _serve_device_suites(card):
+    """Phase 17 (c) and (d): the serve suite at ``mini=True`` and the
+    device suite over 64 MB CUDA tensors."""
+    from ray_memory_management_tpu_torch.utils.device_bench import (
+        run_device_suite)
+    from ray_memory_management_tpu_torch.utils.serve_bench import (
+        run_serve_suite)
+
+    serve = run_serve_suite(mini=True)
+    if not (serve["paged_slots"] > serve["slab_slots"]
+            and serve["paged_slots_ratio"] >= 1.5
+            and serve["continuous_tokens_per_s"] > 0
+            and serve["cold_start_shipped_s"] > 0
+            and serve["n_requests"] > 0):
+        raise AssertionError(f"harnesses: the serve suite missed its "
+                             f"rules: {serve}")
+    log(f"[harnesses] {card}: (c) run_serve_suite(mini=True): "
+        f"paged_slots={serve['paged_slots']} slab_slots="
+        f"{serve['slab_slots']} ratio={serve['paged_slots_ratio']} "
+        f"continuous_vs_barrier={serve['continuous_vs_barrier']} "
+        f"open loop at {serve['offered_rps']} rps: p50_ms="
+        f"{serve['p50_ms']} p99_ms={serve['p99_ms']} violation_pct="
+        f"{serve['slo_violation_pct']} n_requests={serve['n_requests']} "
+        f"cold_start_init_s={serve['cold_start_init_s']} "
+        f"cold_start_shipped_s={serve['cold_start_shipped_s']} "
+        f"tokens_per_s_per_chip={serve['tokens_per_s_per_chip']}")
+    dev = run_device_suite(payload_mb=64)
+    if not dev["bytes_avoided_mb"] > 0:
+        raise AssertionError(f"harnesses: the device suite's zero-copy read "
+                             f"avoided no bytes: {dev}")
+    log(f"[harnesses] {card}: (d) run_device_suite(payload_mb=64) on CUDA "
+        f"tensors: zero_copy_speedup={dev['zero_copy_speedup']} (bar "
+        f"{ZERO_COPY_BAR:g}x: "
+        f"{'met' if dev['zero_copy_speedup'] >= ZERO_COPY_BAR else 'missed'}"
+        f") zero_copy_gbps={dev['zero_copy_gbps']} shm_roundtrip_gbps="
+        f"{dev['shm_roundtrip_gbps']} bytes_avoided_mb="
+        f"{dev['bytes_avoided_mb']} demotion_gbps={dev['demotion_gbps']} "
+        f"ici_gbps={dev['ici_gbps']} host_path_gbps="
+        f"{dev['host_path_gbps']} ici_transfers={dev['ici_transfers']} "
+        f"sweep {dev['eviction_sweep']}")
+    return serve, dev
+
+
+# (module, function, arguments as the CPU tests give them, the fields that
+# must be > 0, the fields printed)
+HARNESS_SUITES = (
+    ("transfer_bench", "run_transfer_microbench",
+     dict(small_pulls=25, payload_mb=16, n_dests=2), ("stripe_requests",),
+     ("pool_speedup", "striped_gbps", "naive_source_bytes",
+      "chain_max_source_bytes")),
+    ("transfer_bench", "run_compression_bench",
+     dict(payload_mb=8, n_dests=2, trials=1, overhead_trials=1),
+     ("broadcast_effective_gbps",),
+     ("codecs_offered", "corpus_ratio", "allreduce_err")),
+    ("locality_bench", "run_locality_suite",
+     dict(n_nodes=2, n_tasks=4, arg_mb=4, trials=1),
+     ("locality_on_tasks_per_s", "locality_off_tasks_per_s"),
+     ("locality_speedup", "locality_bytes_avoided_mb",
+      "prefetch_overlap_ms")),
+    ("tracing_bench", "run_tracing_suite", dict(n_tasks=16, trials=1),
+     ("tracing_on_tasks_per_s", "tracing_off_tasks_per_s"),
+     ("tracing_overhead_pct",)),
+    ("logging_bench", "run_logging_suite", dict(n_tasks=16, trials=1),
+     ("logging_on_tasks_per_s", "logging_off_tasks_per_s"),
+     ("logging_overhead_pct",)),
+    ("profile_bench", "run_profile_suite", dict(n_tasks=16, trials=1),
+     ("profile_on_tasks_per_s", "profile_off_tasks_per_s"),
+     ("profile_overhead_pct",)),
+    ("health_bench", "run_health_suite",
+     dict(n_tasks=16, trials=1, sim_nodes=16, n_rules=3),
+     ("health_on_tasks_per_s", "store_points"),
+     ("health_overhead_pct", "rule_eval_ms")),
+    ("train_elastic_bench", "run_elastic_suite",
+     dict(n_steps=6, checkpoint_every=2, payload_kb=8, save_trials=3),
+     ("steps_per_s_ckpt_off", "steps_per_s_ckpt_async"),
+     ("async_blocking_vs_sync_pct", "recovery_s")),
+    ("job_plane_bench", "run_job_plane_suite", dict(mini=True),
+     ("single_job_tasks_per_s", "churn_jobs"),
+     ("isolation_overhead_pct", "churn_leaked_rows",
+      "churn_leaked_device_bytes")),
+    ("scale_bench", "run_scale_curve",
+     dict(node_counts=(1, 2), per_node_cpus=1, n_tasks=100, n_actors=2,
+          trials=1), (), ("many_tasks_per_s", "many_actors_per_s")),
+    ("pod_bench", "run_pod_curve",
+     dict(node_counts=(2, 4), tasks_per_point=80, rows_target=3000,
+          hot_max_rows=512, rows_per_agent_chunk=250), (),
+     ("tasks_per_s", "dir_p99_us")),
+)
+
+
+def _host_harnesses(card, here):
+    """Phase 17 (e): ``rmt-torch microbenchmark --scale 0.05`` as a
+    subprocess (each ``BASELINE`` row printed, every rate > 0), then each
+    host harness at its CPU test's size, one line of headline fields
+    each; the job plane leaks no rows or device bytes."""
+    import importlib
+
+    from ray_memory_management_tpu_torch.utils.microbenchmark import (
+        BASELINE)
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_memory_management_tpu_torch.scripts.cli",
+         "microbenchmark", "--scale", "0.05"], cwd=here, capture_output=True,
+        text=True, timeout=300)
+    rows = dict(ln.split(": ", 1) for ln in proc.stdout.splitlines()
+                if ": " in ln and ln.split(": ", 1)[0] in BASELINE)
+    rates = {k: float(v.rsplit(" ", 1)[0].replace(",", ""))
+             for k, v in rows.items()}
+    if (proc.returncode != 0 or list(rates) != list(BASELINE)
+            or not all(r > 0 for r in rates.values())):
+        raise AssertionError(f"harnesses: rmt-torch microbenchmark exit "
+                             f"{proc.returncode}, rows {rows}; stderr "
+                             f"{proc.stderr[-2000:]}")
+    log(f"[harnesses] {card}: (e) rmt-torch microbenchmark --scale 0.05: "
+        + " ".join(f"{k}={v:.1f}" for k, v in rates.items()))
+    out = {"microbenchmark": rates}
+    for module, fn, kwargs, positive, shown in HARNESS_SUITES:
+        mod = importlib.import_module(
+            f"ray_memory_management_tpu_torch.utils.{module}")
+        t = time.perf_counter()
+        res = getattr(mod, fn)(**kwargs)
+        secs = time.perf_counter() - t
+        bad = [k for k in positive if not res[k] > 0]
+        if module == "job_plane_bench":
+            bad += [k for k in ("sweep_leaked_rows", "churn_leaked_rows",
+                                "churn_leaked_device_bytes") if res[k]]
+        if bad:
+            raise AssertionError(f"harnesses: {fn} missed {bad}: {res}")
+        log(f"[harnesses] {card}: (e) {fn}({kwargs}) in {secs:.1f} s: "
+            + " ".join(f"{k}={res[k]}" for k in positive + shown))
+        out[fn] = {k: res[k] for k in positive + shown}
+    return out
+
+
+def _long_keys(harnesses, kernel):
+    """One kernel's figures at the flash bench's shapes (BH = 4, D =
+    128, bf16, causal), keyed by S, for the kernels line."""
+    out = {}
+    for s, row in harnesses["long"].items():
+        err = (row["fwd_max_abs_err"] if kernel == "fwd" else
+               row["dq"] if kernel == "dq" else max(row["dk"], row["dv"]))
+        out.update({
+            f"max_abs_err_s{s}": err,
+            f"ms_s{s}": row[f"{kernel}_ms"],
+            f"plain_ms_s{s}": row[f"{kernel}_plain_ms"],
+            f"bound_ms_s{s}": row[f"{kernel}_bound_ms"],
+            f"bound_by_s{s}": row[f"{kernel}_bound_by"],
+            f"library_ms_s{s}": row["fwd_library_ms" if kernel == "fwd"
+                                    else "pair_library_ms"]})
+    return out
+
+
+def phase_harnesses(device, card):
+    """Phase 17: the measurement harnesses on the card (see the module
+    docstring)."""
+    import torch
+
+    from ray_memory_management_tpu_torch.utils import gpu_bench
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    long_rows = _long_kernel_cases(device, card)
+    flash = _flash_bench(device, card)
+    torch.cuda.empty_cache()
+    serving = _serving_bench(card)
+    serve_suite, device_suite = _serve_device_suites(card)
+    host = _host_harnesses(card, here)
+    busbw = gpu_bench.allreduce_busbw()
+    if torch.cuda.device_count() == 1 and busbw is not None:
+        raise AssertionError(f"harnesses: allreduce_busbw on one card gave "
+                             f"{busbw}, not None")
+    log(f"[harnesses] {card}: (f) allreduce_busbw() over "
+        f"{torch.cuda.device_count()} card(s): {busbw}")
+    segs, procs = _leftovers()
+    if segs or procs:
+        raise AssertionError(f"harnesses: left behind shm {segs} and "
+                             f"processes {procs}")
+    phase_s = time.perf_counter() - t_phase
+    figures = (
+        f"[harnesses] {card}: phase_s={phase_s:.1f} " + " ".join(
+            f"S{s}: fwd_ms={r['fwd_ms']:.4f} dq_ms={r['dq_ms']:.4f} "
+            f"dkv_ms={r['dkv_ms']:.4f} sdpa_fwd_ms={r['fwd_library_ms']:.4f}"
+            f" sdpa_pair_ms={r['pair_library_ms']:.4f}"
+            for s, r in long_rows.items()) + " flash_bench: " + " ".join(
+            f"S{s}: flash_ms={r['flash_ms']:.4f} ref_ms={r['ref_ms']:.4f} "
+            f"sdpa_ms={r['sdpa_ms']:.4f}"
+            for s, r in flash["bench"].items())
+        + f" decode_tokens_per_s={serving['decode_tokens_per_s']:.1f} "
+        f"continuous_vs_barrier={serving['continuous_vs_barrier']:.3f} "
+        f"requests_per_s={serving['requests_per_s']:.2f} "
+        f"serve_suite p50_ms={serve_suite['p50_ms']} p99_ms="
+        f"{serve_suite['p99_ms']} paged_slots_ratio="
+        f"{serve_suite['paged_slots_ratio']} zero_copy_speedup="
+        f"{device_suite['zero_copy_speedup']} busbw={busbw}")
+    log(figures)
+    return dict(phase_s=phase_s, long=long_rows, flash=flash,
+                serving=serving, serve_suite=serve_suite,
+                device_suite=device_suite, host=host, busbw=busbw,
+                figures=figures)
+
+
 def main() -> int:
     import torch
 
@@ -4530,6 +4990,8 @@ def main() -> int:
     rllib = timed("rllib", phase_rllib, device, card)
     torch.cuda.empty_cache()
     rllib2 = timed("rllib2", phase_rllib2, device, card)
+    torch.cuda.empty_cache()
+    harnesses = timed("harnesses", phase_harnesses, device, card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -4543,7 +5005,8 @@ def main() -> int:
         "runtime": runtime, "serve_plane": plane,
         "multinode": multinode, "train_plane": train_plane, "moe": moe,
         "pipeline": pipeline, "vision": vision, "data_tune": data_tune,
-        "surfaces": surfaces, "rllib": rllib, "rllib2": rllib2}},
+        "surfaces": surfaces, "rllib": rllib, "rllib2": rllib2,
+        "harnesses": harnesses}},
         default=str))
     # the runtime's, the serve plane's and the multi-node figures again,
     # where the end of the output keeps them
@@ -4555,11 +5018,13 @@ def main() -> int:
     log(surfaces["figures"])
     log(rllib["figures"])
     log(rllib2["figures"])
+    log(harnesses["figures"])
     log(f"[phases] {card}: total_s={total_s:.1f} " + " ".join(
         f"{k}={v:.1f}" for k, v in phases_s.items()))
     src = "ray_memory_management_tpu_torch/csrc/"
     ref = "ray_memory_management_tpu/ops/flash_attention.py:"
     pair = ("SDPA backward, dq, dk and dv together, on the same inputs")
+    flash_bench = harnesses["flash"]
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -4636,6 +5101,13 @@ def main() -> int:
         "launches_rllib": rllib["launches"]["flash_attention_fwd"],
         # phase 16: RLlib's second half reaches no kernel either
         "launches_rllib2": rllib2["launches"]["flash_attention_fwd"],
+        # phase 17: flash_attention_bench's steps and the serving bench's
+        # replica (continuous mode; its own process)
+        "launches_flash_bench": flash_bench["launches"][
+            "flash_attention_fwd"],
+        "launches_serving_bench_replica": harnesses["serving"]["replica"][
+            "continuous"]["launches"],
+        **_long_keys(harnesses, "fwd"),
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",
@@ -4654,6 +5126,9 @@ def main() -> int:
             "flash_attention_dq"],
         "launches_rllib": rllib["launches"]["flash_attention_dq"],
         "launches_rllib2": rllib2["launches"]["flash_attention_dq"],
+        "launches_flash_bench": flash_bench["launches"][
+            "flash_attention_dq"],
+        **_long_keys(harnesses, "dq"),
         "max_abs_err": bwd["dq"],
         "ms": bwd["dq_ms"],
         "plain_ms": bwd["dq_plain_ms"],
@@ -4689,6 +5164,9 @@ def main() -> int:
             "flash_attention_dkv"],
         "launches_rllib": rllib["launches"]["flash_attention_dkv"],
         "launches_rllib2": rllib2["launches"]["flash_attention_dkv"],
+        "launches_flash_bench": flash_bench["launches"][
+            "flash_attention_dkv"],
+        **_long_keys(harnesses, "dkv"),
         "max_abs_err": max(bwd["dk"], bwd["dv"]),
         "ms": bwd["dkv_ms"],
         "plain_ms": bwd["dkv_plain_ms"],

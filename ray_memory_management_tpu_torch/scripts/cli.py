@@ -5,8 +5,8 @@ status:1865, memory:1823, timeline:1758, ``ray list``, plus the job and
 workflow CLIs). argparse-based (no extra deps); subcommands that need a
 cluster spin up an ephemeral in-process one, or, given ``--address``,
 join a running cluster's client port (``client.ClusterServer``) and ask
-its head. ``microbenchmark`` and ``check --perf`` belong to the port's
-benchmark and are not registered yet.
+its head. ``check --perf`` belongs to the port's benchmark and is not
+registered yet.
 """
 
 from __future__ import annotations
@@ -424,6 +424,21 @@ def cmd_doctor(args) -> int:
     return 0 if healthy else 1
 
 
+def cmd_microbenchmark(args) -> int:
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch.utils.microbenchmark import (
+        run_microbenchmark,
+    )
+
+    _ephemeral_runtime()
+    results = run_microbenchmark(scale=args.scale)
+    for name, value in results.items():
+        unit = "GB/s" if "gigabytes" in name else "ops/s"
+        print(f"{name}: {value:,.1f} {unit}")
+    rmt.shutdown()
+    return 0
+
+
 def cmd_timeline(args) -> int:
     import ray_memory_management_tpu_torch as rmt
 
@@ -658,6 +673,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--json", action="store_true",
                    help="machine-readable JSON diagnosis")
     s.set_defaults(fn=cmd_doctor)
+
+    s = sub.add_parser("microbenchmark",
+                       help="run the core microbenchmark suite")
+    s.add_argument("--scale", type=float, default=1.0)
+    s.set_defaults(fn=cmd_microbenchmark)
 
     s = sub.add_parser("timeline", help="dump a chrome trace")
     s.add_argument("--output", default="timeline.json")

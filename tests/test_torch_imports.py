@@ -110,7 +110,13 @@ def test_walk_covers_the_port():
                   ("rllib", "algorithm.py"), ("rllib", "pg.py"),
                   ("rllib", "ppo.py"), ("rllib", "impala.py"),
                   ("rllib", "appo.py"), ("rllib", "dqn.py"),
-                  ("rllib", "recurrent.py")):
+                  ("rllib", "recurrent.py"),
+                  *(("utils", f"{m}.py") for m in (
+                      "microbenchmark", "serve_bench", "device_bench",
+                      "transfer_bench", "locality_bench", "tracing_bench",
+                      "logging_bench", "profile_bench", "health_bench",
+                      "train_elastic_bench", "job_plane_bench",
+                      "scale_bench", "pod_bench"))):
         assert os.path.join("ray_memory_management_tpu_torch",
                             *parts) in names
 

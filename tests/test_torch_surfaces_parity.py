@@ -283,20 +283,25 @@ def test_launcher_command_shapes_match(tmp_path):
     assert j_lines[2].endswith("--quiet") and p_lines[2].endswith("--quiet")
 
 
-def test_port_cli_registers_no_benchmark_verbs():
-    """``microbenchmark`` and ``check --perf`` wait for the port's
-    benchmark; every other verb of the JAX package's CLI is there."""
+def test_port_cli_lacks_only_check_perf():
+    """``check --perf`` (with its ``--baseline`` and ``--current``) waits
+    for the port's benchmark; every verb of the JAX package's CLI is
+    there, ``microbenchmark`` included, and ``list`` is the port's own."""
     from ray_memory_management_tpu.scripts import cli as j_cli
     from ray_memory_management_tpu_torch.scripts import cli
 
     def verbs(parser):
         sub = next(a for a in parser._actions
                    if a.__class__.__name__ == "_SubParsersAction")
-        return set(sub.choices)
+        return sub.choices
 
-    assert verbs(j_cli.build_parser()) - verbs(cli.build_parser()) == {
-        "microbenchmark"}
-    assert verbs(cli.build_parser()) - verbs(j_cli.build_parser()) == {
-        "list"}
+    def options(parser):
+        return {o for a in parser._actions for o in a.option_strings}
+
+    j_verbs, p_verbs = verbs(j_cli.build_parser()), verbs(cli.build_parser())
+    assert set(j_verbs) - set(p_verbs) == set()
+    assert set(p_verbs) - set(j_verbs) == {"list"}
+    assert options(j_verbs["check"]) - options(p_verbs["check"]) == {
+        "--perf", "--baseline", "--current"}
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["check", "--perf"])
