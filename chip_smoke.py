@@ -353,6 +353,28 @@ Phases, each of which must pass (any failure exits non-zero):
                 pod harnesses at their CPU tests' sizes, one line each.
                 (f) ``allreduce_busbw()``: None on one card. Nothing is
                 left behind.
+  18. train rows — the JAX package's four headline training rows
+                through ``train_step_mfu`` at full width, 8 AdamW steps
+                each, with the launch counts zeroed just before each row
+                and read just after: gpt2-small at B = 16, S = 1024 with
+                fp32 and with bf16 parameters (``bf16_params``: the
+                parameters, their gradients and both moments in bf16,
+                ``gpu_bench.LowPrecisionAdamW``), gpt2-small at B = 4, S =
+                4096, and llama-1b (GQA 32/8, 839,976,960 parameters) at
+                B = 4, S = 2048 with bf16 parameters. Each row's loss
+                finite and falling, each kernel launched once per layer
+                per step (12 x 8, 16 x 8), all wgmma; step ms, tokens/s,
+                MFU and peak memory printed per row. Then each row's
+                attention shape (BH 192 S 1024, BH 48 S 4096, BH 128 S
+                2048; D 64) through every kernel against its plain
+                version by phase 2's rules, all wgmma, timed beside its
+                plain version, SDPA and its bound; one step's gradients
+                of each row's model against attention="ref" by phase
+                4's rule (the two long rows at 4 layers: "ref" keeps
+                each layer's S x S probabilities); and one
+                ``LowPrecisionAdamW`` step on the card within one bf16
+                step of the same step on the CPU, from the same
+                parameters, moments and gradients.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -885,9 +907,12 @@ def phase_forward(device, preset="gpt2-small", batch=8, seq=1024):
                 designs=designs)
 
 
-def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
+def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S,
+               n_layers=None):
     """Full-width gradients of ``loss_fn`` with the kernels vs
-    attention="ref". fp32 is held to 1e-3 of each leaf's largest
+    attention="ref" (``n_layers`` cuts the depth; a ``seq`` past the
+    preset's ``max_seq`` widens it, as ``setup_training`` does). fp32 is
+    held to 1e-3 of each leaf's largest
     gradient; bf16 to twice the plain path's own rounding noise (its
     distance to the fp32 model), leaf by leaf. A MoE model's routing is
     discontinuous: a rounding-sized change of a router input can move a
@@ -905,7 +930,11 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
     from ray_memory_management_tpu_torch.ops.moe import pinned_routing
     from ray_memory_management_tpu_torch.utils import gpu_bench
 
-    cfg = dataclasses.replace(gpt.PRESETS[preset], attention="flash")
+    cfg = gpt.PRESETS[preset]
+    over = {"n_layers": n_layers} if n_layers else {}
+    if seq > cfg.max_seq:
+        over["max_seq"] = seq
+    cfg = dataclasses.replace(cfg, attention="flash", **over)
     gen = torch.Generator(device=device).manual_seed(2)
     params = gpt.init_params(cfg, gen, device)
     data = gpu_bench.make_batch(cfg, batch, seq, gen, device)
@@ -945,7 +974,8 @@ def phase_grad(device, preset="gpt2-small", batch=TRAIN_B, seq=TRAIN_S):
     finite = all(r["finite"] for r in rows)
     worst = max(rows, key=lambda r: r["err"] / r["floor"])
     worst32 = max(rows, key=lambda r: r["err32"] / r["scale32"])
-    log(f"[grad] {preset} B={batch} S={seq}: loss bf16 kernel {loss_k:.5f} "
+    log(f"[grad] {preset} L={cfg.n_layers} B={batch} S={seq}: loss bf16 "
+        f"kernel {loss_k:.5f} "
         f"ref {loss_r:.5f}, fp32 kernel {loss_k32:.6f} ref {loss_r32:.6f}; "
         f"bf16 worst leaf {worst['leaf']} max_abs_err={worst['err']:.3e} "
         f"(limit 2 x bf16 noise floor {worst['floor']:.3e}); fp32 worst "
@@ -1127,10 +1157,10 @@ def phase_engine_parity(device, preset="gpt2-small", new_tokens=8):
 
 
 def phase_train(device, steps=8, preset="gpt2-small", batch=TRAIN_B,
-                seq=TRAIN_S):
+                seq=TRAIN_S, bf16_params=False):
     """The training main path: ``train_step_mfu`` (gpt2-small, B = 8,
-    S = 1024, AdamW, unless told otherwise) with the launch counts zeroed
-    just before its steps and read just after."""
+    S = 1024, AdamW, fp32 parameters, unless told otherwise) with the
+    launch counts zeroed just before its steps and read just after."""
     import math
 
     import torch
@@ -1146,13 +1176,14 @@ def phase_train(device, steps=8, preset="gpt2-small", batch=TRAIN_B,
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_count()
     r = train_step_mfu(preset, batch_size=batch, seq_len=seq, steps=steps,
-                       device=device)
+                       device=device, bf16_params=bf16_params)
     launches = launch_counts()
     designs = fwd_design_counts()
     bwd_designs = bwd_design_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     losses = r["losses"]
-    log(f"[train] {preset} B={batch} S={seq} on {r['device']}: "
+    log(f"[train] {preset} B={batch} S={seq} "
+        f"{'bf16' if bf16_params else 'fp32'} params on {r['device']}: "
         f"{steps} AdamW steps, losses {[round(x, 4) for x in losses]}; "
         f"step_ms={r['step_ms']:.2f} tokens_per_s={r['tokens_per_s']:.1f} "
         f"mfu={r['mfu']:.4f} (PaLM accounting, 989 TFLOP/s peak) "
@@ -4520,12 +4551,12 @@ SERVE_BENCH_VOCAB = 50_304    # gpt2-small's vocabulary
 ZERO_COPY_BAR = 10.0          # the device suite's zero-copy bar at 64 MB
 
 
-def _long_kernel_cases(device, card):
-    """Phase 17 (a), first half: each kernel at BH = 4, D = 128, bf16,
-    causal, S in LONG_SEQS against its plain version by phase 2's rules,
-    every launch wgmma; each timed (profiler device time) beside its
-    plain version, SDPA (the forward, and the backward of the pair) and
-    its bound. Returns {S: row}."""
+def _kernel_cases(device, shapes, where):
+    """Each kernel at each (BH, S, D) of ``shapes``, bf16, causal, against
+    its plain version by phase 2's rules, every launch wgmma; each timed
+    (profiler device time) beside its plain version, SDPA (the forward,
+    and the backward of the pair) and its bound. ``where`` opens each log
+    line and names the phase in the error. Returns {(BH, S, D): row}."""
     import torch
     import torch.nn.functional as F
 
@@ -4540,10 +4571,10 @@ def _long_kernel_cases(device, card):
 
     one_wgmma = {WGMMA: 1, "simt": 0}
     rows = {}
-    for s in LONG_SEQS:
-        q, k, v = flash_bench_inputs(LONG_BH, s, LONG_D, device)
+    for bh, s, d in shapes:
+        q, k, v = flash_bench_inputs(bh, s, d, device)
         gen = torch.Generator().manual_seed(1)
-        do = torch.randn(LONG_BH, s, LONG_D, generator=gen).to(
+        do = torch.randn(bh, s, d, generator=gen).to(
             torch.bfloat16).to(device)
         reset_launch_count()
         o, lse = flash_attention_fwd(q, k, v, causal=True, save_lse=True)
@@ -4566,7 +4597,7 @@ def _long_kernel_cases(device, card):
         del want, got
         ok = fwd_ok and design_ok and all(c[2] for c in checks)
         delta = reference_delta(o, do)
-        row = dict(BH=LONG_BH, S=s, D=LONG_D, dtype="bfloat16", causal=True,
+        row = dict(BH=bh, S=s, D=d, dtype="bfloat16", causal=True,
                    designs=designs, ok=ok, fwd_max_abs_err=fwd_err,
                    lse_max_abs_err=lse_err,
                    **{f"d{n}": c[0] for n, c in zip("qkv", checks)},
@@ -4586,7 +4617,7 @@ def _long_kernel_cases(device, card):
                 q, k, v, do, lse, delta, True), reps=3)[0]
             row["dkv_plain_ms"] = device_ms(lambda: reference_flash_dkv(
                 q, k, v, do, lse, delta, True), reps=3)[0]
-            shape = (1, LONG_BH, s, LONG_D)
+            shape = (1, bh, s, d)
             row["fwd_library_ms"] = device_ms(
                 lambda: F.scaled_dot_product_attention(
                     q.view(shape), k.view(shape), v.view(shape),
@@ -4599,15 +4630,15 @@ def _long_kernel_cases(device, card):
                                             retain_graph=True))[0]
             del out, leaves
             row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound(
-                LONG_BH, s, s, LONG_D, True, "bfloat16", 2,
+                bh, s, s, d, True, "bfloat16", 2,
                 save_lse=True)[:2]
             for kernel in ("dq", "dkv"):
                 row[f"{kernel}_bound_ms"], row[f"{kernel}_bound_by"] = (
-                    backward_bound(kernel, LONG_BH, s, s, LONG_D, True,
+                    backward_bound(kernel, bh, s, s, d, True,
                                    "bfloat16", 2)[:2])
-        rows[s] = row
-        log(f"[harnesses] {card}: (a) kernels at BH={LONG_BH} S={s} "
-            f"D={LONG_D} bf16 causal: designs {designs}; fwd max_abs_err="
+        rows[(bh, s, d)] = row
+        log(f"{where} kernels at BH={bh} S={s} "
+            f"D={d} bf16 causal: designs {designs}; fwd max_abs_err="
             f"{fwd_err:.3e} (tol {tol:g}) lse_err={lse_err:.2e}; backward "
             f"max_abs_err " + " ".join(
                 f"d{n}={c[0]:.3e}" for n, c in zip("qkv", checks))
@@ -4622,9 +4653,9 @@ def _long_kernel_cases(device, card):
         torch.cuda.empty_cache()
     bad = [r for r in rows.values() if not r["ok"]]
     if bad:
-        raise AssertionError(f"harnesses: the flash kernels disagree with "
-                             f"their plain versions or took another design "
-                             f"at the bench's shapes: {bad}")
+        raise AssertionError(f"{where} the flash kernels disagree with "
+                             f"their plain versions or took another design: "
+                             f"{bad}")
     return rows
 
 
@@ -4861,22 +4892,32 @@ def _host_harnesses(card, here):
     return out
 
 
+def _kernel_figures(row, kernel):
+    """One kernel's figures in a :func:`_kernel_cases` row."""
+    err = (row["fwd_max_abs_err"] if kernel == "fwd" else
+           row["dq"] if kernel == "dq" else max(row["dk"], row["dv"]))
+    return {"max_abs_err": err, "ms": row[f"{kernel}_ms"],
+            "plain_ms": row[f"{kernel}_plain_ms"],
+            "bound_ms": row[f"{kernel}_bound_ms"],
+            "bound_by": row[f"{kernel}_bound_by"],
+            "library_ms": row["fwd_library_ms" if kernel == "fwd"
+                              else "pair_library_ms"]}
+
+
 def _long_keys(harnesses, kernel):
     """One kernel's figures at the flash bench's shapes (BH = 4, D =
     128, bf16, causal), keyed by S, for the kernels line."""
-    out = {}
-    for s, row in harnesses["long"].items():
-        err = (row["fwd_max_abs_err"] if kernel == "fwd" else
-               row["dq"] if kernel == "dq" else max(row["dk"], row["dv"]))
-        out.update({
-            f"max_abs_err_s{s}": err,
-            f"ms_s{s}": row[f"{kernel}_ms"],
-            f"plain_ms_s{s}": row[f"{kernel}_plain_ms"],
-            f"bound_ms_s{s}": row[f"{kernel}_bound_ms"],
-            f"bound_by_s{s}": row[f"{kernel}_bound_by"],
-            f"library_ms_s{s}": row["fwd_library_ms" if kernel == "fwd"
-                                    else "pair_library_ms"]})
-    return out
+    return {f"{key}_s{s}": value
+            for s, row in harnesses["long"].items()
+            for key, value in _kernel_figures(row, kernel).items()}
+
+
+def _row_keys(train_rows, kernel):
+    """One kernel's figures at the training rows' attention shapes, for
+    the kernels line."""
+    return {"shapes_train_rows": {
+        shape: _kernel_figures(row, kernel)
+        for shape, row in train_rows["kernels"].items()}}
 
 
 def phase_harnesses(device, card):
@@ -4888,7 +4929,9 @@ def phase_harnesses(device, card):
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    long_rows = _long_kernel_cases(device, card)
+    long_rows = {s: row for (_, s, _), row in _kernel_cases(
+        device, [(LONG_BH, s, LONG_D) for s in LONG_SEQS],
+        f"[harnesses] {card}: (a)").items()}
     flash = _flash_bench(device, card)
     torch.cuda.empty_cache()
     serving = _serving_bench(card)
@@ -4926,6 +4969,153 @@ def phase_harnesses(device, card):
                 serving=serving, serve_suite=serve_suite,
                 device_suite=device_suite, host=host, busbw=busbw,
                 figures=figures)
+
+
+# the JAX package's headline training rows (bench.py): preset, B, S,
+# bf16 parameters
+TRAIN_ROWS = (("gpt2-small", 16, 1024, False),
+              ("gpt2-small", 16, 1024, True),
+              ("gpt2-small", 4, 4096, False),
+              ("llama-1b", 4, 2048, True))
+# the gradient check's depth where attention="ref" keeps too much: it
+# holds each layer's S x S probabilities for the backward (fp32 and a
+# bf16 copy), 4.8 GB a layer for gpt2-small at B = 4, S = 4096 and 3.2 GB
+# for llama-1b at B = 4, S = 2048; the kernels' grid is the same at any
+# depth
+GRAD_ROW_LAYERS = {("gpt2-small", 4, 4096): 4, ("llama-1b", 4, 2048): 4}
+
+
+def _row_shapes():
+    """{(preset, B, S): (BH, S, D)}: each row's attention shape as the
+    kernels see it (kv heads repeated up to the query heads)."""
+    from ray_memory_management_tpu_torch.models import gpt
+
+    out = {}
+    for preset, batch, seq, _ in TRAIN_ROWS:
+        cfg = gpt.PRESETS[preset]
+        out[(preset, batch, seq)] = (batch * cfg.n_heads, seq,
+                                     cfg.d_model // cfg.n_heads)
+    return out
+
+
+def _ulps_bf16(a, b):
+    """Per element, how many bf16 steps lie between two bf16 tensors."""
+    import torch
+
+    def ordered(t):  # sign-magnitude bits onto one integer line
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _bf16_adamw_card_vs_cpu(device, preset="gpt2-small", batch=4,
+                            seq=1024):
+    """``LowPrecisionAdamW`` on the card against the same update on the
+    CPU: gpt2-small's bf16 parameters after one step on the card, the
+    next step's gradients, then that step on both sides from the same
+    parameters, moments and gradients. Every parameter, mu and nu must be
+    within one bf16 step of the CPU's; how many differ at all is
+    printed."""
+    import torch
+
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.utils import gpu_bench
+
+    params, opt, data, cfg = gpu_bench.setup_training(
+        preset, batch, seq, False, "flash", device, bf16_params=True)
+    if not isinstance(opt, gpu_bench.LowPrecisionAdamW):
+        raise AssertionError(f"train_rows: bf16 parameters got {opt!r}")
+    gpu_bench.train_step(params, opt, data, cfg)
+    opt.zero_grad(set_to_none=True)
+    gpt.loss_fn(params, data, cfg).backward()
+    leaves = list(gpt.param_leaves(params))
+    host = [t.detach().cpu().requires_grad_() for t in leaves]
+    host_opt = gpu_bench.LowPrecisionAdamW(host, **gpu_bench.ADAMW)
+    for h, t in zip(host, leaves):
+        h.grad = t.grad.cpu()
+        st = opt.state[t]
+        host_opt.state[h] = {"step": st["step"],
+                             "exp_avg": st["exp_avg"].cpu(),
+                             "exp_avg_sq": st["exp_avg_sq"].cpu()}
+    opt.step()
+    host_opt.step()
+    torch.cuda.synchronize()
+    worst, differ, total = 0, 0, 0
+    for h, t in zip(host, leaves):
+        pairs = [(t.detach(), h.detach())] + [
+            (opt.state[t][k], host_opt.state[h][k])
+            for k in ("exp_avg", "exp_avg_sq")]
+        for card_t, cpu_t in pairs:
+            if card_t.dtype != torch.bfloat16:
+                raise AssertionError(f"train_rows: {card_t.dtype} state")
+            ulps = _ulps_bf16(card_t.cpu(), cpu_t)
+            worst = max(worst, int(ulps.max()))
+            differ += int((ulps > 0).sum())
+            total += ulps.numel()
+    out = dict(worst_ulps=worst, differ=differ, elements=total,
+               step=opt.state[leaves[0]]["step"])
+    log(f"[train_rows] LowPrecisionAdamW step {out['step']} on the card vs "
+        f"the CPU from the same state and gradients ({preset}, bf16): "
+        f"{differ} of {total} elements of params, mu and nu differ, worst "
+        f"{worst} bf16 ulps (limit 1)")
+    if worst > 1:
+        raise AssertionError(f"train_rows: LowPrecisionAdamW on the card is "
+                             f"{worst} bf16 ulps off the CPU's update")
+    del params, opt, host, host_opt, leaves
+    return out
+
+
+def phase_train_rows(device, card, steps=8):
+    """Phase 18: :data:`TRAIN_ROWS` through ``phase_train``, one after
+    another; then each row's attention shape through the kernels against
+    their plain versions, one step's gradients of each row's model
+    against attention="ref" by phase 4's rule, and ``LowPrecisionAdamW``
+    on the card against the CPU (see the module docstring)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rows = {}
+    for preset, batch, seq, bf16 in TRAIN_ROWS:
+        torch.cuda.empty_cache()
+        tag = f"{preset} B={batch} S={seq}" + (" bf16" if bf16 else "")
+        rows[tag] = phase_train(device, steps=steps, preset=preset,
+                                batch=batch, seq=seq, bf16_params=bf16)
+    torch.cuda.empty_cache()
+    train_s = time.perf_counter() - t0
+    shapes = _row_shapes()
+    kernels = {f"BH{bh} S{s} D{d}": row for (bh, s, d), row in
+               _kernel_cases(device, sorted(set(shapes.values())),
+                             f"[train_rows] {card}:").items()}
+    grads = {}
+    for (preset, batch, seq) in shapes:
+        torch.cuda.empty_cache()
+        grads[f"{preset} B={batch} S={seq}"] = phase_grad(
+            device, preset=preset, batch=batch, seq=seq,
+            n_layers=GRAD_ROW_LAYERS.get((preset, batch, seq)))
+    torch.cuda.empty_cache()
+    adamw = _bf16_adamw_card_vs_cpu(device)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    figures = (f"[train_rows] {card}: phase_s={phase_s:.1f} rows_s="
+               f"{train_s:.1f} " + "; ".join(
+                   f"{tag}: step_ms={r['step_ms']:.2f} tokens_per_s="
+                   f"{r['tokens_per_s']:.1f} mfu={r['mfu']:.4f} peak_mem_gb="
+                   f"{r['peak_mem_gb']:.2f} n_params={r['n_params']} loss "
+                   f"{r['losses'][0]:.4f}->{r['losses'][-1]:.4f} launches "
+                   f"{r['launches']['flash_attention_fwd']}"
+                   for tag, r in rows.items())
+               + "; kernels " + " ".join(
+                   f"{shape}: fwd {r['fwd_ms']:.4f} dq "
+                   f"{r['dq_ms']:.4f} dkv {r['dkv_ms']:.4f} ms (sdpa fwd "
+                   f"{r['fwd_library_ms']:.4f} pair "
+                   f"{r['pair_library_ms']:.4f})"
+                   for shape, r in kernels.items())
+               + f"; adamw card vs cpu {adamw['differ']} of "
+               f"{adamw['elements']} differ, worst {adamw['worst_ulps']} ulps")
+    log(figures)
+    return dict(rows=rows, kernels=kernels, grads=grads, adamw=adamw,
+                phase_s=phase_s, rows_s=train_s, figures=figures)
 
 
 def main() -> int:
@@ -4992,6 +5182,8 @@ def main() -> int:
     rllib2 = timed("rllib2", phase_rllib2, device, card)
     torch.cuda.empty_cache()
     harnesses = timed("harnesses", phase_harnesses, device, card)
+    torch.cuda.empty_cache()
+    train_rows = timed("train_rows", phase_train_rows, device, card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -5006,7 +5198,7 @@ def main() -> int:
         "multinode": multinode, "train_plane": train_plane, "moe": moe,
         "pipeline": pipeline, "vision": vision, "data_tune": data_tune,
         "surfaces": surfaces, "rllib": rllib, "rllib2": rllib2,
-        "harnesses": harnesses}},
+        "harnesses": harnesses, "train_rows": train_rows}},
         default=str))
     # the runtime's, the serve plane's and the multi-node figures again,
     # where the end of the output keeps them
@@ -5019,6 +5211,7 @@ def main() -> int:
     log(rllib["figures"])
     log(rllib2["figures"])
     log(harnesses["figures"])
+    log(train_rows["figures"])
     log(f"[phases] {card}: total_s={total_s:.1f} " + " ".join(
         f"{k}={v:.1f}" for k, v in phases_s.items()))
     src = "ray_memory_management_tpu_torch/csrc/"
@@ -5108,6 +5301,11 @@ def main() -> int:
         "launches_serving_bench_replica": harnesses["serving"]["replica"][
             "continuous"]["launches"],
         **_long_keys(harnesses, "fwd"),
+        # phase 18: each headline training row's 8 steps
+        "launches_train_rows": {
+            tag: r["launches"]["flash_attention_fwd"]
+            for tag, r in train_rows["rows"].items()},
+        **_row_keys(train_rows, "fwd"),
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",
@@ -5129,6 +5327,11 @@ def main() -> int:
         "launches_flash_bench": flash_bench["launches"][
             "flash_attention_dq"],
         **_long_keys(harnesses, "dq"),
+        # phase 18: each headline training row's 8 steps
+        "launches_train_rows": {
+            tag: r["launches"]["flash_attention_dq"]
+            for tag, r in train_rows["rows"].items()},
+        **_row_keys(train_rows, "dq"),
         "max_abs_err": bwd["dq"],
         "ms": bwd["dq_ms"],
         "plain_ms": bwd["dq_plain_ms"],
@@ -5167,6 +5370,11 @@ def main() -> int:
         "launches_flash_bench": flash_bench["launches"][
             "flash_attention_dkv"],
         **_long_keys(harnesses, "dkv"),
+        # phase 18: each headline training row's 8 steps
+        "launches_train_rows": {
+            tag: r["launches"]["flash_attention_dkv"]
+            for tag, r in train_rows["rows"].items()},
+        **_row_keys(train_rows, "dkv"),
         "max_abs_err": max(bwd["dk"], bwd["dv"]),
         "ms": bwd["dkv_ms"],
         "plain_ms": bwd["dkv_plain_ms"],

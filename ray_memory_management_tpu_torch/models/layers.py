@@ -128,12 +128,16 @@ def _normalize(x, mean, var, scale, bias, eps: float):
 
 def _stats(x, dims, group=None, n: int = 1):
     """flax ``_compute_stats`` (fast variance) in fp32 over ``dims``; with
-    a data ``group`` of ``n`` ranks, over the global batch (each rank's
-    means summed over the group, whose backward sums the gradients)."""
+    ``group`` (the process groups of the data axes, ``n`` ranks in all),
+    over the global batch (each rank's means summed over the groups,
+    whose backward sums the gradients)."""
     xf = x.float()
     mu, mu2 = xf.mean(dim=dims), xf.square().mean(dim=dims)
     if group is not None:
-        mu, mu2 = _regions.sum_over(torch.stack([mu, mu2]), group) / n
+        both = torch.stack([mu, mu2])
+        for g in group:
+            both = _regions.sum_over(both, g)
+        mu, mu2 = both / n
     return mu, torch.clamp_min(mu2 - mu.square(), 0.0)
 
 
@@ -187,17 +191,20 @@ class BatchNorm(nn.Module):
 
 
 def _data_mesh(mesh):
-    """(group, size, rank) of a one-axis data mesh (dp or fsdp), or
-    (None, 1, 0) without a mesh."""
-    from ..parallel.sharding import DATA_AXES
+    """(groups, size, rank) of a mesh whose every axis is a data axis (dp,
+    fsdp or both): the process groups of the axes that split the batch,
+    the number of data ranks and this rank's share of the batch's rows
+    (``batch_pspec``'s order); (None, 1, 0) without a mesh."""
+    from ..parallel.sharding import DATA_AXES, data_groups
 
     if mesh is None:
         return None, 1, 0
     names = tuple(mesh.mesh_dim_names or ())
-    if len(names) != 1 or names[0] not in DATA_AXES:
-        raise ValueError(f"the vision train steps shard the batch over one "
-                         f"data axis ({DATA_AXES}); the mesh has {names}")
-    return mesh.get_group(0), mesh.size(), mesh.get_local_rank(0)
+    if not names or any(name not in DATA_AXES for name in names):
+        raise ValueError(f"the vision train steps shard the batch over data "
+                         f"axes ({DATA_AXES}) alone; the mesh has {names}")
+    groups, n, rank = data_groups(mesh)
+    return groups or None, n, rank
 
 
 def dp_train_step(model: nn.Module, optimizer, mesh, loss_fn):
@@ -205,12 +212,14 @@ def dp_train_step(model: nn.Module, optimizer, mesh, loss_fn):
     group, n)`` -> (loss, ...) forward and backward, steps ``optimizer``
     (over ``model``'s parameters, updated in place) and returns the loss.
 
-    With ``mesh`` (one data axis) the step is data-parallel as the JAX
-    step over a dp-sharded batch is under jit: the batch is the GLOBAL
-    one, the same on every rank (checked); each rank runs its rows, with
-    the batch statistics of the global batch (``group``, ``n``), and the
-    gradients and the loss are averaged over the ranks. The replicas
-    start from rank 0's parameters and buffers."""
+    With ``mesh`` (data axes only: dp, fsdp or both) the step is
+    data-parallel as the JAX step over a batch sharded on the data axes
+    is under jit: the batch is the GLOBAL one, the same on every rank
+    (checked); each rank runs its rows, with the batch statistics of the
+    global batch (``group``: the data axes' groups, ``n`` ranks in all),
+    and the gradients and the loss are averaged over the ranks. The
+    parameters stay replicated: the replicas start from rank 0's
+    parameters and buffers."""
     import torch.distributed as dist
 
     from ..parallel.sharding import _all_reduce_mean, _check_same_batch
@@ -218,10 +227,11 @@ def dp_train_step(model: nn.Module, optimizer, mesh, loss_fn):
     group, n, rank = _data_mesh(mesh)
     params = [p for g in optimizer.param_groups for p in g["params"]]
     if group is not None:
-        src = dist.get_global_rank(group, 0)
         with torch.no_grad():
-            for t in list(model.parameters()) + list(model.buffers()):
-                dist.broadcast(t, src=src, group=group)
+            for g in group:
+                src = dist.get_global_rank(g, 0)
+                for t in list(model.parameters()) + list(model.buffers()):
+                    dist.broadcast(t, src=src, group=g)
 
     def rows(x):
         if x.shape[0] % n:

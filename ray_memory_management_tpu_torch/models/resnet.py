@@ -78,8 +78,9 @@ class ResNet(nn.Module):
         self.Dense_0 = Dense(c, num_classes, dtype=torch.float32)
 
     def forward(self, x, train: bool = True, group=None, n: int = 1):
-        """images [B, 3, H, W] -> logits [B, classes] fp32; ``group`` (of
-        ``n`` data ranks) makes the batch statistics global."""
+        """images [B, 3, H, W] -> logits [B, classes] fp32; ``group`` (the
+        data axes' process groups, ``n`` ranks in all) makes the batch
+        statistics global."""
         x = self.Conv_0(x.to(self.dtype))
         x = F.relu(self.BatchNorm_0(x, train, group, n))
         x = max_pool_same(x, 3, 2)
@@ -127,7 +128,7 @@ def resnet_loss_fn(model: ResNet, batch, group=None, n: int = 1):
 
 def make_resnet_train_step(model: ResNet, optimizer, mesh=None):
     """The train step: ``step(batch)`` -> loss, the model and its running
-    statistics updated in place. With a mesh (one data axis) the batch is
+    statistics updated in place. With a mesh (data axes only) the batch is
     the global one, each rank runs its rows, the BatchNorm statistics are
     the global batch's and the gradients are averaged
     (``layers.dp_train_step``)."""

@@ -155,7 +155,7 @@ def vit_loss_fn(model: ViT, batch):
 
 def make_vit_train_step(model: ViT, optimizer, mesh=None):
     """The train step: ``step(batch)`` -> loss, the model updated in
-    place; with a mesh (one data axis) each rank runs its rows of the
+    place; with a mesh (data axes only) each rank runs its rows of the
     global batch and the gradients are averaged
     (``layers.dp_train_step``)."""
     return dp_train_step(model, optimizer, mesh,

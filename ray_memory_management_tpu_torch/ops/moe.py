@@ -30,12 +30,20 @@ all-reduce's backward is the identity and the ranks' partial gradients of
 the tokens and of ``combine`` are summed (``_regions``), so no gradient is
 counted once per rank.
 
-With a data axis (``dp``) in the mesh, x is this rank's rows of the
-global batch, as ``parallel.make_train_step`` hands them: the dispatch
-groups are the JAX package's groups of the global batch (so a group may
-not straddle two ranks' rows: the function raises if it would), and the
-aux loss takes the global fractions and mean probabilities, summed over
-the data ranks.
+With data axes (dp, fsdp or both) in the mesh, x is this rank's rows
+of the global batch, as ``parallel.make_train_step`` hands them: the
+dispatch groups are the JAX package's groups of the global batch (so a
+group may not straddle two ranks' rows: the function raises if it
+would), and the aux loss takes the global fractions and mean
+probabilities, summed over the data ranks.
+
+The layouts whose weights are DTensors (fsdp, tp and their mixes with
+ep: the JAX ``param_pspecs``, which GSPMD runs through the same
+function) take the same path on each rank's local tensors: the fsdp
+shards of the weights are gathered for use and their gradients
+reduce-scattered, and tp splits each expert Megatron-style (w1/w3 by
+columns, w2 by rows), its partial outputs summed over tp as ep's are
+over ep.
 
 A ``live`` mask [B, S] keeps tokens out of routing: masked tokens take no
 capacity, get a zero output and no share of the aux loss. The serve
@@ -46,12 +54,13 @@ from __future__ import annotations
 
 import contextlib
 import math
+import sys
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import DATA_AXES
+from ..parallel.sharding import DATA_AXES, data_groups
 from . import _regions
 
 
@@ -172,16 +181,9 @@ def _ep_group(mesh, n_experts: int, local: int):
     return mesh.get_group("ep"), mesh.get_local_rank("ep") * local
 
 
-def _data_group(mesh):
-    """(process group, size) of the mesh's data axis, or (None, 1)."""
-    names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
-    data = [n for n in DATA_AXES
-            if n in names and mesh.size(names.index(n)) > 1]
-    if not data:
-        return None, 1
-    if len(data) > 1:
-        raise NotImplementedError("moe_ffn over two data axes")
-    return mesh.get_group(data[0]), mesh.size(names.index(data[0]))
+def _is_dtensor(t) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
 
 
 def moe_ffn(x, layer, cfg, mesh=None, live=None):
@@ -190,17 +192,84 @@ def moe_ffn(x, layer, cfg, mesh=None, live=None):
     ``layer`` holds this layer's slices: router [D, E], w1/w3 [E', D, F],
     w2 [E', F, D], with E' = E (every expert here) or this rank's E/ep
     experts of ``mesh``'s ep axis; x is this rank's rows of the global
-    batch where ``mesh`` has a data axis. ``live`` [B, S] (bool), if
-    given, masks tokens out of routing and the aux loss."""
-    if any(type(t).__name__ == "DTensor" for t in layer.values()):
-        raise NotImplementedError(
-            "moe_ffn takes plain tensors: ep trains on each rank's local "
-            "expert shard (parallel.shard_pytree over an ep mesh)")
+    batch where ``mesh`` has data axes. DTensor weights (the fsdp and tp
+    layouts) take a DTensor x and give DTensors back
+    (:func:`_moe_ffn_dtensor`). ``live`` [B, S] (bool), if given, masks
+    tokens out of routing and the aux loss."""
+    if any(_is_dtensor(t) for t in (x, *layer.values())):
+        return _moe_ffn_dtensor(x, layer, cfg, live)
+    E = layer["router"].shape[-1]
+    local = layer["w1"].shape[0]
+    parts, first = (), 0
+    if local != E:
+        group, first = _ep_group(mesh, E, local)
+        parts = (group,)
+    return _moe_ffn(x, layer, cfg, data_groups(mesh), parts, first,
+                    _regions.sum_over, live)
+
+
+def _moe_ffn_dtensor(x, layer, cfg, live=None):
+    """:func:`moe_ffn` over DTensors, as ``parallel.make_train_step`` runs
+    the fsdp and tp layouts: each rank routes and runs the FFN on its rows
+    of x (``Shard(0)`` over the data axes) with plain tensors. Every
+    weight's fsdp shards are gathered for use, and its gradient, partial
+    over the data ranks, is reduce-scattered back (DTensor's
+    redistribute); its ep shards (the expert dim) and tp shards (w1/w3's
+    columns, w2's rows within each expert) stay local, and the experts'
+    partial outputs are summed over those axes. The aux loss takes the
+    global batch, summed over the data axes with no sum of the
+    gradients: DTensor adds the data ranks' partial weight gradients
+    itself. Returns (out in x's row layout, aux replicated), both
+    DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not _is_dtensor(x):
+        raise ValueError("moe_ffn: DTensor expert weights take a DTensor x "
+                         "(the rows of parallel.make_train_step's batch)")
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    rows = [Shard(0) if n in DATA_AXES else Replicate() for n in names]
+    x_local = x.redistribute(placements=rows).to_local()
+
+    def use(w):
+        keep = [Replicate() if n in DATA_AXES else p
+                for n, p in zip(names, w.placements)]
+        grads = [Partial() if n in DATA_AXES else p
+                 for n, p in zip(names, keep)]
+        return w.redistribute(placements=keep).to_local(
+            grad_placements=grads)
+
+    local = {k: use(layer[k]) for k in ("router", "w1", "w3", "w2")}
+    # the mesh dims that split the experts: ep (the expert dim) and tp
+    # (within each expert)
+    parts, first = [], 0
+    for d, p in enumerate(layer["w1"].placements):
+        if names[d] in DATA_AXES or not p.is_shard():
+            continue
+        parts.append(mesh.get_group(d))
+        if p.dim == 0:
+            first = mesh.get_local_rank(d) * local["w1"].shape[0]
+    out, aux = _moe_ffn(x_local, local, cfg, data_groups(mesh),
+                        tuple(parts), first, _regions.leave_partial, live)
+    return (DTensor.from_local(out, mesh, rows, run_check=False),
+            DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False))
+
+
+def _moe_ffn(x, layer, cfg, data, parts, first: int, data_sum, live=None):
+    """The FFN on plain tensors. x [B, S, D] is this rank's rows of the
+    global batch, cut over the data axes ``data`` (:func:`data_groups`);
+    the expert weights hold experts ``first`` .. ``first + E'`` of E, and
+    of each the part that the process groups ``parts`` (ep, tp) split
+    among their ranks: the ranks' partial outputs are summed over each
+    of ``parts``, and so are the partial gradients of what enters them
+    (``_regions``). ``data_sum(t, group)`` sums the aux loss's fractions
+    and mean probabilities over each data group."""
+    groups, n_data, _ = data
     B, S, D = x.shape
     E = layer["router"].shape[-1]
     k = cfg.expert_top_k
     T = B * S
-    data, n_data = _data_group(mesh)
     g = _group_size(T * n_data, cfg.expert_group_size)
     if T % g:
         raise ValueError(f"a dispatch group of {g} tokens of the global "
@@ -218,11 +287,11 @@ def moe_ffn(x, layer, cfg, mesh=None, live=None):
     dispatch = (combine > 0.0).to(dt)                        # [G, g, E, C]
 
     xin = xg.to(dt)
-    local = layer["w1"].shape[0]
-    if local != E:
-        group, first = _ep_group(mesh, E, local)
+    for group in parts:
         xin = _regions.enter_partial(xin, group)
         combine = _regions.enter_partial(combine, group)
+    local = layer["w1"].shape[0]
+    if local != E:
         dispatch = dispatch[:, :, first:first + local]
         combine = combine[:, :, first:first + local]
     expert_in = torch.einsum("gtec,gtd->egcd", dispatch, xin)  # [E', G, C, D]
@@ -232,17 +301,18 @@ def moe_ffn(x, layer, cfg, mesh=None, live=None):
     expert_out = torch.einsum("egcf,efd->egcd", gate_h * up,
                               layer["w2"].to(dt))            # [E', G, C, D]
     out = torch.einsum("gtec,egcd->gtd", combine.to(dt), expert_out)
-    if local != E:
+    for group in parts:
         out = _regions.leave_partial(out, group)
 
     # load-balancing aux loss (Switch eq. 4): E * sum_e f_e * p_e, f_e the
     # fraction of (live) tokens dispatched to e, p_e their mean router prob
     if mask is None:
-        f = dispatch_total.mean(dim=(0, 1))
+        f = dispatch_total.mean(dim=(0, 1)).detach()
         p = probs.mean(dim=(0, 1))
-        if data is not None:  # over the global batch
-            f = _regions.sum_over(f.detach(), data) / n_data
-            p = _regions.sum_over(p, data) / n_data
+        for group in groups:  # over the global batch
+            f, p = data_sum(f, group), data_sum(p, group)
+        if groups:
+            f, p = f / n_data, p / n_data
     else:
         n = mask.sum().clamp_min(1.0)
         f = dispatch_total.sum(dim=(0, 1)) / n

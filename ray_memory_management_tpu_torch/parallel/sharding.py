@@ -185,6 +185,22 @@ def _mesh_all_reduce(t, mesh, op=None, dims=None):
                         group=mesh.get_group(d))
 
 
+def data_groups(mesh):
+    """(process groups, ranks, index) of the mesh's data axes that split
+    the batch (size > 1), in mesh order: their groups, the product of
+    their sizes, and this rank's index among those data ranks, which is
+    its share of the global batch's rows as :func:`batch_pspec` cuts
+    them. ((), 1, 0) without any."""
+    names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+    groups, n, index = [], 1, 0
+    for d, name in enumerate(names):
+        if name in DATA_AXES and mesh.size(d) > 1:
+            groups.append(mesh.get_group(d))
+            index = index * mesh.size(d) + mesh.get_local_rank(d)
+            n *= mesh.size(d)
+    return tuple(groups), n, index
+
+
 def _data_dims(mesh):
     """The indices of the mesh's data axes (over which the batch is
     sharded and replicated gradients are averaged)."""

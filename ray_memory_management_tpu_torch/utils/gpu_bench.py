@@ -32,12 +32,75 @@ SEED = 0  # random weights and batch
 ADAMW = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
 
 
-def make_optimizer(params: gpt.Params) -> torch.optim.AdamW:
+class LowPrecisionAdamW(torch.optim.Optimizer):
+    """optax's ``adamw`` over parameters kept in a low-precision dtype
+    (bf16), written out: both moments in the parameter's dtype (optax's
+    ``mu_dtype=bf16``, and its ν takes the parameters' dtype), and every
+    operation of optax's update in that dtype, in optax's order, each
+    rounded: μ = (1 − β1)·g + β1·μ, ν = (1 − β2)·g² + β2·ν, the bias
+    corrections 1 − β^t in fp32 cast to the dtype, μ̂ / (√ν̂ + ε), plus
+    λ·p, times −lr, added to p. Its Python constants round to the dtype
+    as JAX's weakly typed scalars do (β2 = 0.999 becomes 1.0 in bf16, as
+    there). ``torch.optim.AdamW`` orders the same update otherwise (the
+    decay first, a lerp, the step size folded into one constant), which
+    in bf16 moves about 1.5 % of the elements by a rounding."""
+
+    def __init__(self, params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=1e-4):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @staticmethod
+    def _constants(group, dtype, t):
+        """Step ``t``'s constants, each rounded to ``dtype``: (1 − β1, β1,
+        1 − β2, β2, 1 − β1^t, 1 − β2^t, ε, λ, −lr), the corrections taken
+        in fp32 first."""
+        def c(x):  # a Python constant, rounded to the dtype
+            return float(torch.tensor(x, dtype=dtype))
+
+        b1, b2 = group["betas"]
+        corrections = [c(float(torch.tensor(1.0) - torch.tensor(b) ** t))
+                       for b in (b1, b2)]
+        return (c(1 - b1), c(b1), c(1 - b2), c(b2), *corrections,
+                c(group["eps"]), c(group["weight_decay"]), c(-group["lr"]))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("LowPrecisionAdamW takes no closure")
+        for group in self.param_groups:
+            known = {}  # (dtype, step) -> constants
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                state["step"] += 1
+                key = (p.dtype, state["step"])
+                if key not in known:
+                    known[key] = self._constants(group, *key)
+                one_b1, b1, one_b2, b2, cor1, cor2, eps, wd, neg_lr = \
+                    known[key]
+                g, m, v = p.grad, state["exp_avg"], state["exp_avg_sq"]
+                m.copy_(one_b1 * g + b1 * m)
+                v.copy_(one_b2 * (g * g) + b2 * v)
+                u = (m / cor1) / ((v / cor2).sqrt() + eps)
+                p.add_((u + wd * p) * neg_lr)
+
+
+def make_optimizer(params: gpt.Params) -> torch.optim.Optimizer:
     """Mark every parameter as trainable and return AdamW over all of them
-    (optax ``adamw(3e-4)``: the decay applies to every leaf)."""
+    (optax ``adamw(3e-4)``: the decay applies to every leaf):
+    ``torch.optim.AdamW``, or :class:`LowPrecisionAdamW` over bf16
+    parameters (optax's ``adamw(3e-4, mu_dtype=bf16)``)."""
     leaves = list(gpt.param_leaves(params))
     for t in leaves:
         t.requires_grad_(True)
+    if all(t.dtype == torch.bfloat16 for t in leaves):
+        return LowPrecisionAdamW(leaves, **ADAMW)
     return torch.optim.AdamW(leaves, **ADAMW)
 
 
@@ -62,14 +125,20 @@ def train_step(params: gpt.Params, opt: torch.optim.Optimizer, batch,
 
 
 def setup_training(preset: str, batch_size: int, seq_len: int,
-                   remat: bool, attention: str, device: torch.device
+                   remat: bool, attention: str, device: torch.device,
+                   bf16_params: bool = False
                    ) -> Tuple[gpt.Params, torch.optim.AdamW, Dict[str, Any],
                               gpt.TransformerConfig]:
     """The benchmark's model, optimizer and batch: ``preset`` with
     ``max_seq = seq_len``, random weights and one random batch from
-    :data:`SEED`. Returns (params, opt, batch, cfg)."""
+    :data:`SEED`. With ``bf16_params`` the parameters are drawn and kept
+    in bf16 (``cfg.param_dtype``), and so are their gradients and both
+    AdamW moments (:class:`LowPrecisionAdamW`: the JAX ``adamw(3e-4,
+    mu_dtype=bf16)`` over bf16 parameters, whose ν takes the parameters'
+    dtype too). Returns (params, opt, batch, cfg)."""
+    over = {"param_dtype": torch.bfloat16} if bf16_params else {}
     cfg = dataclasses.replace(gpt.PRESETS[preset], attention=attention,
-                              max_seq=seq_len, remat=remat)
+                              max_seq=seq_len, remat=remat, **over)
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = gpt.init_params(cfg, gen, device)
     opt = make_optimizer(params)
@@ -80,10 +149,12 @@ def setup_training(preset: str, batch_size: int, seq_len: int,
 def train_step_mfu(preset: str = "gpt2-small", batch_size: int = 8,
                    seq_len: int = 1024, steps: int = 8,
                    remat: bool = False, attention: str = "flash",
-                   device: Optional[Union[str, torch.device]] = None
-                   ) -> Dict[str, Any]:
+                   device: Optional[Union[str, torch.device]] = None,
+                   bf16_params: bool = False) -> Dict[str, Any]:
     """Train ``preset`` for exactly ``steps`` AdamW steps on one repeated
-    batch and time them.
+    batch and time them. ``bf16_params`` keeps the parameters, their
+    gradients and both AdamW moments in bf16 (:func:`setup_training`),
+    what lets llama-1b and its optimizer fit beside its activations.
 
     The first ``steps - 3 * w`` steps (w = (steps - 1) // 3) warm up the
     allocator and the kernel libraries; the rest run as three timed
@@ -94,10 +165,11 @@ def train_step_mfu(preset: str = "gpt2-small", batch_size: int = 8,
     other figures are host timings.
 
     Returns tokens_per_s, step_ms, loss (the last step's), losses (every
-    step's), n_params, mfu, steps and device."""
+    step's), n_params, mfu, steps, bf16_params and device."""
     device = resolve_device(device)
     params, opt, batch, cfg = setup_training(preset, batch_size, seq_len,
-                                             remat, attention, device)
+                                             remat, attention, device,
+                                             bf16_params)
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     losses, best, window = _timed_windows(
@@ -116,6 +188,7 @@ def train_step_mfu(preset: str = "gpt2-small", batch_size: int = 8,
         "mfu": (tokens_per_s * flops_per_token / PEAK_BF16_H100
                 if on_card else None),
         "steps": steps,
+        "bf16_params": bf16_params,
         "device": (torch.cuda.get_device_name(device) if on_card
                    else str(device)),
     }

@@ -6,6 +6,8 @@
     python3 -m ray_memory_management_tpu_torch.utils.profile_serve --mode sharded
     python3 -m ray_memory_management_tpu_torch.utils.profile_serve --mode train \\
         --preset mixtral-tiny --batch 4 --seq 2048
+    python3 -m ray_memory_management_tpu_torch.utils.profile_serve --mode train \\
+        --preset llama-1b --batch 4 --seq 2048 --bf16-params
 
 ``--mode serve`` (the default) builds ``LLMServer`` (gpt2-small, paged
 continuous batching, 8 slots, 32 new tokens), warms it up, then serves
@@ -22,7 +24,8 @@ the device-busy share
 of the traced wall time, each
 flash attention kernel's time and share, and the kernels that take the
 most time. ``--preset`` (and for training ``--batch``, ``--seq``) trace
-another model than gpt2-small. Needs a CUDA card.
+another model than gpt2-small; ``--bf16-params`` trains bf16 parameters
+(``train_step_mfu(bf16_params=True)``'s setting). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -141,10 +144,10 @@ def _train(args, profile, activities):
     device = torch.device("cuda", torch.cuda.current_device())
     params, opt, batch, cfg = gpu_bench.setup_training(
         args.preset, args.batch, args.seq, remat=False, attention="flash",
-        device=device)
+        device=device, bf16_params=args.bf16_params)
     return _train_windows(
         args, lambda: gpu_bench.train_step(params, opt, batch, cfg),
-        profile, activities, "")
+        profile, activities, " with bf16 parameters" * args.bf16_params)
 
 
 def _sharded(args, profile, activities):
@@ -183,6 +186,8 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", default="gpt2-small")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--bf16-params", action="store_true",
+                    help="--mode train: bf16 parameters and AdamW moments")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: no CUDA device")

@@ -1,6 +1,7 @@
 """The parallel strategies across cards: dp, fsdp, tp and fsdp+tp, and on
-request the GPipe pipeline (pp, dp+pp); for a MoE preset ep, dp+ep, and
-sp with ring or Ulysses attention.
+request the GPipe pipeline (pp, dp+pp); for a MoE preset ep, dp+ep, sp
+with ring or Ulysses attention, the expert weights under fsdp, tp,
+fsdp+tp and ep+tp, and dp+sp with ring or Ulysses attention.
 
     python3 -m ray_memory_management_tpu_torch.utils.strategy_bench
     python3 -m ray_memory_management_tpu_torch.utils.strategy_bench \\
@@ -16,9 +17,12 @@ weights and batch from ``gpu_bench``'s seed, and for each strategy —
 ``dp`` over all ranks, ``fsdp`` over all ranks, ``tp`` over all ranks
 and ``fsdp+tp`` over half by half; for a MoE preset ``ep`` over all ranks
 (the experts split among them), ``dp+ep`` (2 x half), ``sp-ring`` and
-``sp-ulysses`` over all ranks; ``pp`` over all ranks and ``dp+pp`` (2 x
-half), the block stack in as many stages with as many microbatches
-(``pipeline_loss_fn``) — shards them with ``param_pspecs`` and
+``sp-ulysses`` over all ranks, ``fsdp``, ``tp`` and ``fsdp+tp`` as for a
+dense preset (the expert weights' fsdp shards gathered, tp within each
+expert), ``ep+tp`` (2 x half) and ``dp+sp-ring`` and ``dp+sp-ulysses`` (2
+x half); ``pp`` over all ranks and ``dp+pp`` (2 x half), the block stack
+in as many stages with as many microbatches (``pipeline_loss_fn``) —
+shards them with ``param_pspecs`` and
 ``shard_pytree`` and takes ``--steps`` AdamW steps through
 ``make_train_step`` (two warm-up steps first, on a copy of the same
 start). Rank 0 first takes the same steps on one device with
@@ -28,17 +32,20 @@ the best step time, tokens/s and every rank's kernel launches by
 design; it fails on a non-finite loss, a distance above the JAX
 package's own 5e-2 between strategies (``tests/test_parallel.py:70``),
 or a rank whose kernels did not launch as often as its attention asks:
-once per layer per step, under ``sp-ring`` once per K/V chunk rank r
-attends, r + 1 of the causal ring's chunks, and under a pipeline once
-per layer of its stage and microbatch. The MoE and pipeline rows'
-sharding changes no arithmetic but the order of sums and roundings, so
-every loss of theirs is held to 1e-3. Routing is discontinuous: a rounding-sized
-change of a router input can move a token to another expert, and AdamW
-turns the changed gradient into an lr-sized step. So the reference run
-records its expert choices, rank 0 broadcasts them, and each MoE row's
-measured steps replay them (``moe.pinned_routing``; a data rank its own
-rows' groups): the rows compare the sharded arithmetic with the
-unsharded, and print how many of rank 0's choices the replay overrode.
+once per layer per step, under the ring once per K/V chunk a rank
+attends (r + 1 of the causal ring's chunks on the ring's rank r), and
+under a pipeline once per layer of its stage and microbatch. The
+sharding of the pipeline rows and of the MoE rows without tp changes no
+arithmetic but the order of sums and roundings, so every loss of theirs
+is held to 1e-3; the dense preset's four rows and every row that shards
+within a product (tp) to the 5e-2. Routing is discontinuous: a
+rounding-sized change of a router input can move a token to another
+expert, and AdamW turns the changed gradient into an lr-sized step. So
+the reference run records its expert choices, rank 0 broadcasts them,
+and each MoE row's measured steps replay them (``moe.pinned_routing``; a
+data rank its own rows' groups): the rows compare the sharded arithmetic
+with the unsharded, and print how many of rank 0's choices the replay
+overrode.
 """
 
 from __future__ import annotations
@@ -52,7 +59,8 @@ from typing import Any, Dict, List
 
 STRATEGIES = ("dp", "fsdp", "tp", "fsdp+tp")
 PP_STRATEGIES = ("pp", "dp+pp")  # dense presets, on request
-MOE_STRATEGIES = ("ep", "dp+ep", "sp-ring", "sp-ulysses")
+MOE_STRATEGIES = ("ep", "dp+ep", "sp-ring", "sp-ulysses", "fsdp", "tp",
+                  "fsdp+tp", "ep+tp", "dp+sp-ring", "dp+sp-ulysses")
 TOL = 5e-2  # the JAX package's dp-against-tp bound
 ORDER_TOL = 1e-3  # rows whose sharding changes only the order of sums
 
@@ -78,13 +86,28 @@ def strategy_axes(strategy: str, ranks: int) -> Dict[str, int]:
         return {"dp": 2, "ep": ranks // 2}
     if strategy == "dp+pp":
         return {"dp": 2, "pp": ranks // 2}
+    if strategy == "ep+tp":
+        return {"ep": 2, "tp": ranks // 2}
+    if strategy.startswith("dp+sp-"):
+        return {"dp": 2, "sp": ranks // 2}
     if strategy.startswith("sp-"):
         return {"sp": ranks}
     return {strategy: ranks}
 
 
 def _attention(strategy: str) -> str:
-    return strategy[3:] if strategy.startswith("sp-") else "flash"
+    return strategy.split("sp-")[1] if "sp-" in strategy else "flash"
+
+
+def row_tol(strategy: str, preset: str) -> float:
+    """A row's bound on its losses' distance from the unsharded run's:
+    :data:`TOL` for a dense preset's four rows and for every row with
+    tp, which shards within a product; else :data:`ORDER_TOL`."""
+    from ..models import gpt
+
+    dense = not gpt.PRESETS[preset].n_experts
+    return (TOL if (dense and strategy in STRATEGIES) or "tp" in strategy
+            else ORDER_TOL)
 
 
 def microbatches(strategy: str, ranks: int) -> int:
@@ -96,10 +119,12 @@ def microbatches(strategy: str, ranks: int) -> int:
 def launches_wanted(strategy: str, rank: int, n_layers: int, steps: int,
                     ranks: int) -> int:
     """Each kernel's launches on ``rank`` in ``steps`` steps: once per
-    layer and step, the ring's once per chunk attended, a pipeline
-    stage's once per layer of its stage (L/S) and microbatch (M)."""
-    per_layer = rank + 1 if strategy == "sp-ring" else 1
-    stages = strategy_axes(strategy, ranks).get("pp", 1)
+    layer and step, the ring's once per chunk attended (its rank on the
+    sp axis, the mesh's last, plus one), a pipeline stage's once per
+    layer of its stage (L/S) and microbatch (M)."""
+    axes = strategy_axes(strategy, ranks)
+    per_layer = rank % axes["sp"] + 1 if strategy.endswith("sp-ring") else 1
+    stages = axes.get("pp", 1)
     return (per_layer * n_layers // stages * microbatches(strategy, ranks)
             * steps)
 
@@ -141,12 +166,10 @@ def _local_choices(choices, mesh, device):
     data axis this data rank's share of them (its rows are a contiguous
     share of the batch, and so of the dispatch groups)."""
     import torch
-    import torch.distributed as dist
 
-    from ..ops import moe
+    from ..parallel.sharding import data_groups
 
-    group, n = moe._data_group(mesh)
-    i = dist.get_rank(group) if group is not None else 0
+    _, n, i = data_groups(mesh)
     return [c.chunk(n)[i].to(device, torch.long) for c in choices]
 
 
@@ -168,9 +191,7 @@ def _strategy(args, device, strategy: str, choices) -> Dict[str, Any]:
     mesh = par.make_mesh(strategy_axes(strategy, args.ranks),
                          device_type=device.type)
 
-    rule = "ep" if "ep" in strategy else (
-        "dp" if strategy.startswith("sp-") or "pp" in strategy
-        else strategy)
+    rule = "dp" if "sp-" in strategy or "pp" in strategy else strategy
     n_micro = microbatches(strategy, args.ranks)
     batch_axes = ("dp",) if strategy == "dp+pp" else ()
 
@@ -216,7 +237,10 @@ def _strategy(args, device, strategy: str, choices) -> Dict[str, Any]:
             "designs": {"fwd": fwd_design_counts(), **bwd_design_counts()},
             # heads each rank's attention kernel sees (tp, Ulysses)
             "local_heads": {"tp": heads // args.ranks, "fsdp+tp": heads // 2,
-                            "sp-ulysses": heads // args.ranks}.get(strategy)}
+                            "ep+tp": heads // (args.ranks // 2),
+                            "sp-ulysses": heads // args.ranks,
+                            "dp+sp-ulysses": heads // (args.ranks // 2),
+                            }.get(strategy)}
 
 
 def _rank(rank: int, args, init_method: str, queue) -> None:
@@ -315,7 +339,7 @@ def summarize(args, results) -> Dict[str, Any]:
                                                 args.ranks))
                             for r, d in enumerate(launches))
         ) if args.device == "cuda" else True
-        tol = TOL if s in STRATEGIES else ORDER_TOL
+        tol = row_tol(s, args.preset)
         if (not all(math.isfinite(x) for x in losses) or dist > tol
                 or any(row["losses"] != losses for row in rows)
                 or not launched):
@@ -354,8 +378,8 @@ def main(argv=None) -> int:
                              f"{args.ranks} cards, "
                              f"{torch.cuda.device_count()} visible")
     if args.ranks % 2:
-        raise SystemExit("strategy_bench: fsdp+tp, dp+ep and dp+pp need an "
-                         "even rank count")
+        raise SystemExit("strategy_bench: the rows over 2 x half the ranks "
+                         "need an even rank count")
     summary = summarize(args, run(args))
     for s, row in summary["strategies"].items():
         print(f"{s} {row['axes']}: step_ms={row['step_ms']:.2f} "
