@@ -375,6 +375,29 @@ Phases, each of which must pass (any failure exits non-zero):
                 ``LowPrecisionAdamW`` step on the card within one bf16
                 step of the same step on the CPU, from the same
                 parameters, moments and gradients.
+  19. native   — the native tier: (a) ``native/build.py`` builds the C++
+                thin client's ``rmt_demo`` and ``rmt_executor_demo`` and
+                the shm store's stress test from the checkout's sources
+                (g++, each timed) and the stress test must print
+                ``STRESS OK`` (its TSan and ASan runs stay in the CPU
+                tests); the flash forward kernel at this path's prefill
+                shape (fp32, BH = 12, S = 6, D = 64, causal) against its
+                plain version. (b) ``rmt.init(num_cpus=4, num_gpus=1)``,
+                ``runtime_smoke.cpp_generate`` registered as
+                ``cpp_transform`` with ``num_gpus=1`` and a
+                ``ClusterServer``; the unchanged ``rmt_demo`` runs against
+                it four times, each exiting 0 with ``DEMO OK`` and a
+                RESULT line equal, token for token, to the driver's own
+                ``gpt.generate`` (fp32 gpt2-small, the same seed, prompt
+                ``b"abcdef"``, 16 greedy tokens); each call's prefill in
+                the GPU worker launches the forward kernel once per layer
+                (12; counts zeroed just before each generate, read just
+                after) on the driver's card. The demo's first and warm
+                wall times are printed. (c) ``rmt_executor_demo`` joins
+                the same cluster; ``rev``'s ObjectRef feeds
+                ``runtime_smoke.flip_on_card`` in a ``num_gpus=1`` task,
+                which must give back the original bytes from the card;
+                round trips timed. Nothing is left behind.
 
 It prints the card's name and power limit first, one JSON line of kernel
 figures before the last line (the forward kernel runs on both main paths:
@@ -5118,6 +5141,247 @@ def phase_train_rows(device, card, steps=8):
                 phase_s=phase_s, rows_s=train_s, figures=figures)
 
 
+NATIVE_PROGRAMS = ("rmt_demo", "rmt_executor_demo", "stress")
+NATIVE_WARM = 3               # warm calls after each native path's first
+NATIVE_PROMPT = b"abcdef"     # the demo's cpp_transform("abc", "def")
+
+
+def _native_build(card):
+    """Phase 19 (a): the C++ client's programs and the plain stress test
+    built from the checkout's sources (``native/build.py``), each timed;
+    one stress run must print ``STRESS OK`` with no failure."""
+    from ray_memory_management_tpu_torch.native import build
+
+    paths, build_s = {}, {}
+    for name in NATIVE_PROGRAMS:
+        t0 = time.perf_counter()
+        paths[name] = build.program_path(name)
+        build_s[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = subprocess.run([paths["stress"]], capture_output=True, text=True,
+                         timeout=120)
+    stress_s = time.perf_counter() - t0
+    log(f"[native] {card}: (a) built {list(NATIVE_PROGRAMS)} in "
+        f"{sum(build_s.values()):.2f} s "
+        f"({', '.join(f'{k} {v:.2f} s' for k, v in build_s.items())}) into "
+        f"{os.path.dirname(paths['stress'])}; stress rc={run.returncode} in "
+        f"{stress_s:.3f} s: {run.stdout.strip()!r} {run.stderr.strip()!r}")
+    if (run.returncode != 0 or "STRESS OK" not in run.stdout
+            or "failures=0" not in run.stderr):
+        raise AssertionError(f"native: the stress test failed: {run.stdout}"
+                             f"{run.stderr}")
+    return paths, build_s, stress_s
+
+
+def _native_demo(demo, address):
+    """One run of the unchanged ``rmt_demo`` against ``address``: (its
+    wall seconds, its RESULT text); it must exit 0 and print every
+    line of ``tests/test_torch_cpp_client.py``'s end-to-end case."""
+    t0 = time.perf_counter()
+    run = subprocess.run([demo, address[0], str(address[1])],
+                         capture_output=True, text=True, timeout=180)
+    wall = time.perf_counter() - t0
+    lines = run.stdout.splitlines()
+    need = ("CONNECTED", "GET roundtrip=ok", "DUPGET ok",
+            "NAMED registered=yes", "WAIT ready=1 not_ready=0", "DEMO OK")
+    if run.returncode != 0 or any(n not in lines for n in need):
+        raise AssertionError(f"native: rmt_demo rc={run.returncode}: "
+                             f"{run.stdout} {run.stderr}")
+    result = [ln for ln in lines if ln.startswith("RESULT ")]
+    return wall, result[0][len("RESULT "):] if result else None
+
+
+def _wait_cpp(rmt, name, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while name not in rmt.cpp_functions():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"native: no C++ executor registered "
+                                 f"{name!r} in {timeout} s")
+        time.sleep(0.05)
+
+
+def phase_native(device, card, preset="gpt2-small"):
+    """Phase 19: the native tier (see the module docstring). (a) builds
+    the C++ programs and runs the stress test; (b) the unchanged
+    ``rmt_demo`` calls ``runtime_smoke.cpp_generate`` as the cluster's
+    ``cpp_transform`` in a ``num_gpus=1`` worker, and its RESULT must be
+    the driver's own ``gpt.generate`` of the same weights and prompt,
+    token for token, each call's prefill through the flash forward
+    kernel once per layer; (c) ``rmt_executor_demo``'s ``rev`` result
+    feeds ``runtime_smoke.flip_on_card`` on the card by ObjectRef."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_memory_management_tpu_torch as rmt
+    from ray_memory_management_tpu_torch.client.server import (
+        ClusterServer, register_named_function, unregister_named_function)
+    from ray_memory_management_tpu_torch.models import gpt
+    from ray_memory_management_tpu_torch.ops.flash_attention import (
+        flash_attention, fwd_design, fwd_design_counts, launch_count,
+        reference_attention, reset_launch_count)
+    from ray_memory_management_tpu_torch.utils import runtime_smoke
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    paths, build_s, stress_s = _native_build(card)
+    cfg = dataclasses.replace(gpt.PRESETS[preset], dtype=torch.float32)
+    prompt_len = len(NATIVE_PROMPT)
+
+    # the kernel at this path's prefill shape against its plain version
+    gen = torch.Generator(device=device).manual_seed(19)
+    q, k, v = (torch.randn(cfg.n_heads, prompt_len, cfg.d_model //
+                           cfg.n_heads, device=device, generator=gen)
+               for _ in range(3))
+    reset_launch_count()
+    out = flash_attention(q, k, v, causal=True)
+    _sync(device)
+    kernel_designs = fwd_design_counts()
+    err = (out - reference_attention(q, k, v, True)).abs().max().item()
+    design = fwd_design(torch.float32, q.shape[-1])
+    if on_card and not (err <= TOL["float32"]
+                        and kernel_designs[design] == 1):
+        raise AssertionError(f"native: flash forward at BH={q.shape[0]} "
+                             f"S={prompt_len} fp32 err {err} "
+                             f"{kernel_designs}")
+    del q, k, v, out
+
+    # the driver's own greedy tokens: the same seed and prompt
+    params = gpt.init_params(cfg, torch.Generator(device=device).manual_seed(
+        runtime_smoke.CPP_SEED), device)
+    reset_launch_count()
+    want = runtime_smoke.generate_text(params, cfg, NATIVE_PROMPT).decode()
+    driver_launches = launch_count()
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    lease, uuid = _driver_card(device) if on_card else (None, None)
+
+    tmp = tempfile.mkdtemp(prefix="rmt_native_")  # removed at the end
+    gen_log = os.path.join(tmp, "cpp_generate.jsonl")
+    os.environ[runtime_smoke.CPP_GENERATE_LOG] = gen_log
+    executor = server = None
+    try:
+        rmt.init(num_cpus=4, num_gpus=1)
+        register_named_function("cpp_transform", runtime_smoke.cpp_generate,
+                                num_gpus=1)
+        server = ClusterServer()
+        walls, results = [], []
+        for _ in range(1 + NATIVE_WARM):
+            wall, result = _native_demo(paths["rmt_demo"], server.address)
+            walls.append(wall)
+            results.append(result)
+        with open(gen_log) as f:
+            calls = [json.loads(line) for line in f]
+
+        executor = subprocess.Popen(
+            [paths["rmt_executor_demo"], *map(str, server.address)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _wait_cpp(rmt, "rev")
+        flip = rmt.remote(runtime_smoke.flip_on_card).options(num_gpus=1)
+        rev = rmt.cpp_function("rev")
+        trips, flips = [], []
+        for _ in range(1 + NATIVE_WARM):
+            t0 = time.perf_counter()
+            ref = rev.remote(NATIVE_PROMPT)
+            flips.append(rmt.get(
+                flip.remote(ref, device=None if on_card else "cpu"),
+                timeout=300))
+            trips.append(time.perf_counter() - t0)
+    finally:
+        unregister_named_function("cpp_transform")
+        if executor is not None:
+            executor.kill()
+            executor.communicate(timeout=10)
+        if server is not None:
+            server.close()
+        rmt.shutdown()
+        os.environ.pop(runtime_smoke.CPP_GENERATE_LOG, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    segs, procs = _leftovers()
+
+    n_layers = cfg.n_layers
+    same = all(r == want for r in results)
+    launches = [c["launches"] for c in calls]
+    per_call_ok = len(calls) == 1 + NATIVE_WARM and all(
+        c["launches"] == n_layers and c["designs"][design] == n_layers
+        and (not on_card or (c["cuda_visible_devices"] == lease
+                             and c["device_uuid"] == uuid))
+        for c in calls)
+    flips_ok = all(
+        f["value"] == NATIVE_PROMPT and f["sum"] == sum(NATIVE_PROMPT)
+        and (not on_card or (f["device"].startswith("cuda")
+                             and f["cuda_visible_devices"] == lease
+                             and f["device_uuid"] == uuid))
+        for f in flips)
+    warm_ms = float(np.median(walls[1:])) * 1e3
+    gen_warm_ms = float(np.median([c["seconds"] for c in calls[1:]])) * 1e3
+    trip_warm_ms = float(np.median(trips[1:])) * 1e3
+    log(f"[native] {card}: (b) rmt_demo -> cpp_transform = "
+        f"runtime_smoke.cpp_generate (num_gpus=1, {preset} fp32, seed "
+        f"{runtime_smoke.CPP_SEED}, prompt {NATIVE_PROMPT!r}, "
+        f"{runtime_smoke.CPP_NEW_TOKENS} greedy tokens): RESULT "
+        f"{results[0]!r}, the driver's gpt.generate {want!r}: "
+        f"{'equal' if same else 'DIFFER'} in {len(results)} calls; flash "
+        f"forward at BH={cfg.n_heads} S={prompt_len} D="
+        f"{cfg.d_model // cfg.n_heads} fp32 err {err:.3g} (tol "
+        f"{TOL['float32']}), design {design}; launches per call in the "
+        f"worker {launches} {[c['designs'] for c in calls]} (need "
+        f"{n_layers}, one per layer), in the driver's generate "
+        f"{driver_launches}; worker lease "
+        f"{[c['cuda_visible_devices'] for c in calls][:1]} (want {lease!r}),"
+        f" its card the driver's="
+        f"{all(c['device_uuid'] == uuid for c in calls)}; demo wall first "
+        f"{walls[0]:.3f} s (GPU worker start, CUDA init, weights), warm "
+        f"{[round(w * 1e3, 1) for w in walls[1:]]} ms (median "
+        f"{warm_ms:.1f}); in the worker: generate first "
+        f"{calls[0]['seconds'] if calls else float('nan'):.3f} s, warm "
+        f"median {gen_warm_ms:.1f} ms")
+    log(f"[native] {card}: (c) rmt_executor_demo rev({NATIVE_PROMPT!r}"
+        f") -> ObjectRef -> flip_on_card (num_gpus=1): "
+        f"{[f['value'] for f in flips][:1]} on {flips[0]['device']} (lease "
+        f"{flips[0]['cuda_visible_devices']!r}, its card the driver's="
+        f"{flips[0]['device_uuid'] == uuid}), sum {flips[0]['sum']}: "
+        f"{'right' if flips_ok else 'WRONG'}; round trip first "
+        f"{trips[0] * 1e3:.1f} ms, warm {[round(t * 1e3, 1) for t in trips[1:]]}"
+        f" ms (median {trip_warm_ms:.1f})")
+    log(f"[native] after rmt.shutdown(): shm segments {segs}, port "
+        f"agent/worker/zygote processes {procs}, executor rc "
+        f"{executor.returncode}")
+    if not same:
+        raise AssertionError(f"native: the C++ call's tokens {results} != "
+                             f"the driver's {want}")
+    if not per_call_ok or (on_card and driver_launches != n_layers):
+        raise AssertionError(f"native: cpp_generate calls {calls}, driver "
+                             f"launches {driver_launches}, want {n_layers} "
+                             f"{design} launches per call on the driver's "
+                             f"card")
+    if not flips_ok:
+        raise AssertionError(f"native: the executor's result through the "
+                             f"GPU task gave {flips}")
+    if segs or procs or executor.returncode is None:
+        raise AssertionError(f"native: left behind shm {segs} and "
+                             f"processes {procs}")
+    phase_s = time.perf_counter() - t_phase
+    figures = (
+        f"[native] {card}: phase_s={phase_s:.1f} build_s="
+        f"{sum(build_s.values()):.2f} " + " ".join(
+            f"build_{k}_s={v:.2f}" for k, v in build_s.items())
+        + f" stress_s={stress_s:.3f} cpp_call_first_s={walls[0]:.3f} "
+        f"cpp_call_warm_ms={warm_ms:.1f} worker_generate_first_s="
+        f"{calls[0]['seconds']:.3f} worker_generate_warm_ms="
+        f"{gen_warm_ms:.1f} flash_fwd_launches_per_call={launches} "
+        f"executor_roundtrip_first_ms={trips[0] * 1e3:.1f} "
+        f"executor_roundtrip_warm_ms={trip_warm_ms:.1f}")
+    log(figures)
+    return dict(phase_s=phase_s, build_s=build_s, stress_s=stress_s,
+                kernel_err=err, demo_walls=walls, calls=calls,
+                launches=launches, driver_launches=driver_launches,
+                trips=trips, figures=figures)
+
+
 def main() -> int:
     import torch
 
@@ -5184,6 +5448,8 @@ def main() -> int:
     harnesses = timed("harnesses", phase_harnesses, device, card)
     torch.cuda.empty_cache()
     train_rows = timed("train_rows", phase_train_rows, device, card)
+    torch.cuda.empty_cache()
+    native = timed("native", phase_native, device, card)
     total_s = time.perf_counter() - t0
 
     log(json.dumps({"summary": {
@@ -5198,7 +5464,8 @@ def main() -> int:
         "multinode": multinode, "train_plane": train_plane, "moe": moe,
         "pipeline": pipeline, "vision": vision, "data_tune": data_tune,
         "surfaces": surfaces, "rllib": rllib, "rllib2": rllib2,
-        "harnesses": harnesses, "train_rows": train_rows}},
+        "harnesses": harnesses, "train_rows": train_rows,
+        "native": native}},
         default=str))
     # the runtime's, the serve plane's and the multi-node figures again,
     # where the end of the output keeps them
@@ -5212,6 +5479,7 @@ def main() -> int:
     log(rllib2["figures"])
     log(harnesses["figures"])
     log(train_rows["figures"])
+    log(native["figures"])
     log(f"[phases] {card}: total_s={total_s:.1f} " + " ".join(
         f"{k}={v:.1f}" for k, v in phases_s.items()))
     src = "ray_memory_management_tpu_torch/csrc/"
@@ -5306,6 +5574,9 @@ def main() -> int:
             tag: r["launches"]["flash_attention_fwd"]
             for tag, r in train_rows["rows"].items()},
         **_row_keys(train_rows, "fwd"),
+        # phase 19: each C++ driver call's prefill in its GPU worker
+        # (counts zeroed just before each generate, read just after)
+        "launches_cpp_generate": native["launches"],
     }, {
         "name": "flash_attention_dq",
         "route": "cuda",

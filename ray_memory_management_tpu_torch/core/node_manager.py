@@ -712,10 +712,12 @@ class NodeManager:
                 best.steal_pending = True
             return best
 
-    def return_stolen(self, handle: WorkerHandle, task_ids) -> list:
+    def return_stolen(self, handle: WorkerHandle, task_ids) -> tuple:
         """Take stolen tasks back from ``handle``: re-queue their specs at
         the FRONT (they were dispatched first) and release the worker's
-        lease if its pipeline drained. Returns the requeued specs."""
+        lease if its pipeline drained. Returns (the specs, whether they
+        were re-queued here): a dead node's queue was drained once by its
+        death handler, so there the caller must place them elsewhere."""
         specs = []
         with self._lock:
             handle.steal_pending = False
@@ -728,8 +730,10 @@ class NodeManager:
                     # the blob-carrying dispatch may itself be stolen, so
                     # this worker can no longer be assumed to know the fn
                     handle.known_fns.discard(spec.fn_id)
-            for spec in reversed(specs):
-                self.queue.appendleft(spec)
+            queued = self.alive
+            if queued:
+                for spec in reversed(specs):
+                    self.queue.appendleft(spec)
             if not handle.inflight and handle.lease_resources is not None:
                 self.resources.free(handle.lease_resources)
                 handle.lease_resources = None
@@ -740,7 +744,7 @@ class NodeManager:
                 if handle.actor_id is None and handle.alive():
                     handle.idle = True
                     self.idle_workers.appendleft(handle)
-        return specs
+        return specs, queued
 
     def _start_workers_for_backlog(self, req: Resources) -> None:
         """Start enough workers to cover the queued backlog, bounded by the

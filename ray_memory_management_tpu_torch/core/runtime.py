@@ -347,7 +347,7 @@ class _TaskRecord:
 
 class _ActorInfo:
     __slots__ = ("spec", "record", "node_id", "handle", "seq", "pending",
-                 "creation_future", "handle_count")
+                 "flushing", "creation_future", "handle_count")
 
     def __init__(self, spec: ActorCreationSpec, record: ActorRecord):
         self.spec = spec
@@ -356,6 +356,9 @@ class _ActorInfo:
         self.handle: Optional[WorkerHandle] = None
         self.seq = itertools.count()
         self.pending: deque = deque()  # TaskSpecs waiting for ALIVE
+        # set while the ALIVE transition dispatches ``pending`` outside
+        # the lock: a task submitted meanwhile queues behind it
+        self.flushing = False
         self.creation_future: Future = Future()
         self.handle_count = 0
 
@@ -2291,9 +2294,15 @@ class Runtime:
         nm = self.nodes.get(handle.node_id)
         if nm is None:
             return
-        specs = nm.return_stolen(handle, msg["task_ids"])
-        if specs:
-            self._pump_node(nm)
+        specs, queued = nm.return_stolen(handle, msg["task_ids"])
+        if queued:
+            if specs:
+                self._pump_node(nm)
+            return
+        # the node died after the steal was asked for: its queue is gone,
+        # so the returned tasks are placed again on a live node
+        for spec in specs:
+            self._schedule(spec)
 
     def _send_task(self, handle: WorkerHandle, spec: TaskSpec) -> None:
         # two dispatchers can target one worker concurrently (submit-path
@@ -2701,12 +2710,50 @@ class Runtime:
         self.gcs.set_actor_state(info.record.actor_id, ACTOR_ALIVE)
         if not info.creation_future.done():
             info.creation_future.set_result(True)
-        flush = []
+        self._flush_actor_queue(info)
+
+    def _flush_actor_queue(self, info: _ActorInfo) -> None:
+        """Dispatch the actor's queued tasks in seq order until the queue
+        stays empty, one thread at a time (``info.flushing``): a task
+        submitted meanwhile joins the queue (see submit_actor_task)
+        instead of overtaking it. With no live worker the queue waits
+        for the death handler, which restarts the actor or fails it."""
         with self._lock:
-            while info.pending:
-                flush.append(info.pending.popleft())
-        for spec in flush:
-            self._dispatch_actor_task(info, spec)
+            if info.flushing:
+                return  # the flushing thread takes what was queued
+            info.flushing = True
+        try:
+            while True:
+                with self._lock:
+                    handle = info.handle
+                    if (not info.pending or handle is None
+                            or handle.death_processed
+                            or not handle.alive()):
+                        info.flushing = False
+                        return
+                    flush = list(info.pending)
+                    info.pending.clear()
+                for spec in flush:
+                    self._dispatch_actor_task(info, spec)
+        except BaseException:
+            with self._lock:
+                info.flushing = False
+            raise
+
+    def _park_actor_task(self, info: _ActorInfo, spec: TaskSpec) -> None:
+        """``spec`` found no live worker: queue it for the actor's next
+        incarnation, or fail it if the actor is dead (its death handler
+        has drained the queue, so a task queued after would wait
+        forever)."""
+        with self._lock:
+            state = info.record.state
+            if state != ACTOR_DEAD:
+                info.pending.append(spec)
+        if state == ACTOR_DEAD:
+            self._fail_task(spec, ActorDiedError(
+                info.record.death_cause or "actor is dead"))
+        elif state == ACTOR_ALIVE:
+            self._flush_actor_queue(info)  # a new incarnation may be up
 
     def submit_actor_task(self, payload: dict,
                           adopt_returns: bool = True) -> List[bytes]:
@@ -2760,15 +2807,21 @@ class Runtime:
             for oid in self._ref_deps(spec):
                 self._incref(oid)
                 self._lineage_dependents[oid] += 1
-        state = info.record.state
+            state = info.record.state
+            # straight to the actor only with nothing queued before it:
+            # an earlier task still in the queue, or in a batch the ALIVE
+            # transition is dispatching, must not be overtaken
+            direct = (state == ACTOR_ALIVE and not info.pending
+                      and not info.flushing)
+            if state != ACTOR_DEAD and not direct:
+                info.pending.append(spec)  # pending / restarting / flushing
         if state == ACTOR_DEAD:
             self._fail_task(spec, ActorDiedError(
                 info.record.death_cause or "actor is dead"))
-        elif state == ACTOR_ALIVE:
+        elif direct:
             self._dispatch_actor_task(info, spec)
-        else:  # pending / restarting: queue in seq order
-            with self._lock:
-                info.pending.append(spec)
+        elif state == ACTOR_ALIVE:
+            self._flush_actor_queue(info)  # queued behind earlier tasks
         return return_ids
 
     def _dispatch_actor_task(self, info: _ActorInfo, spec: TaskSpec) -> None:
@@ -2816,8 +2869,7 @@ class Runtime:
             return  # tearing down: no materialize/recovery round trips
         handle = info.handle
         if handle is None or not handle.alive():
-            with self._lock:
-                info.pending.append(spec)
+            self._park_actor_task(info, spec)
             return
         node_id = info.node_id
         # device-resident deps block on a worker round-trip the router
@@ -2875,7 +2927,15 @@ class Runtime:
                 except Exception as e:
                     self._fail_task(spec, TaskError(spec.name, e))
                     return
-        handle.inflight[spec.task_id] = spec
+        with self._lock:
+            # a worker whose death was already processed had its inflight
+            # map swept: a task added now would wait there forever
+            swept = handle.death_processed
+            if not swept:
+                handle.inflight[spec.task_id] = spec
+        if swept:
+            self._park_actor_task(info, spec)
+            return
         if not self._sender_enqueue(handle, self._task_msg(handle, spec)):
             self._on_worker_death(handle)
 
@@ -3011,7 +3071,8 @@ class Runtime:
             # under max_task_retries, queued ones wait for ALIVE.
             with self._lock:
                 retry = sorted(inflight.values(), key=lambda s: s.seq)
-                for spec in retry:
+                # appendleft from the last: the queue keeps seq order
+                for spec in reversed(retry):
                     rec = self.tasks.get(spec.task_id)
                     if rec and rec.retries_left > 0:
                         rec.retries_left -= 1
@@ -3941,6 +4002,9 @@ class Runtime:
             fut.set_result(True)
         else:
             fut.set_exception(error)
+        # a task that took the promise as an ObjectRef argument before it
+        # resolved is parked on it: wake it, as a landing task return does
+        self._on_dep_ready(oid)
 
     def put_serialized_arg(self, data: ser.SerializedObject) -> bytes:
         """Promote an oversized call argument to a store object (the

@@ -564,3 +564,81 @@ def pin_weights(preset: str = "gpt2-small", seed: int = 0,
             "node_id": os.environ.get("RMT_NODE_ID"),
             "device_uuid": (_device_uuid(device)
                             if device.type == "cuda" else None)}
+
+
+# ------------------------------------------------------------ C++ frontend
+CPP_NEW_TOKENS = 16   # the tokens cpp_generate adds to its prompt
+CPP_SEED = 1          # its weights' seed (chip_smoke.py's engine parity)
+# a file to which cpp_generate appends one JSON line per call (its
+# launches, card and seconds): a named function returns only its bytes
+CPP_GENERATE_LOG = "RMT_CPP_GENERATE_LOG"
+
+
+def generate_text(params, cfg, prompt: bytes,
+                  steps: int = CPP_NEW_TOKENS) -> bytes:
+    """Greedy ``gpt.generate`` of ``steps`` tokens after a prompt whose
+    ids are ``prompt``'s byte values, on the device of ``params``.
+    Returns the new ids as ASCII, separated by commas."""
+    import torch
+
+    from ..models import gpt
+
+    device = next(iter(gpt.param_leaves(params))).device
+    ids = torch.tensor([list(prompt)], dtype=torch.int64, device=device)
+    with torch.inference_mode():
+        new = gpt.generate(params, cfg, ids, steps)[0, len(prompt):]
+    return ",".join(str(t) for t in new.tolist()).encode()
+
+
+def cpp_generate(a: bytes, b: bytes) -> bytes:
+    """A named function for the C++ frontend (``register_named_function(
+    "cpp_transform", cpp_generate, num_gpus=1)``): fp32 gpt2-small at full
+    width, weights drawn from ``CPP_SEED`` on this process's card (once
+    per process), greedily continues the prompt ``a + b`` by
+    ``CPP_NEW_TOKENS`` tokens (:func:`generate_text`; the prefill runs
+    through the flash forward kernel). It raises without a card. With
+    ``CPP_GENERATE_LOG`` set in the environment, each call appends its
+    flash launches (counted from zero just before the generate, read just
+    after), its card and its seconds to that file."""
+    import json
+
+    from ..ops.flash_attention import (fwd_design_counts, launch_count,
+                                       reset_launch_count)
+    from .device import resolve_device
+
+    t0 = time.perf_counter()
+    device = resolve_device(None)
+    params, cfg = _scoring_model("gpt2-small", CPP_SEED, "float32", device)
+    reset_launch_count()
+    text = generate_text(params, cfg, bytes(a) + bytes(b))
+    log = os.environ.get(CPP_GENERATE_LOG)
+    if log:
+        with open(log, "a") as f:
+            f.write(json.dumps({
+                "pid": os.getpid(), "launches": launch_count(),
+                "designs": fwd_design_counts(),
+                "cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"),
+                "device_uuid": _device_uuid(device),
+                "seconds": time.perf_counter() - t0}) + "\n")
+    return text
+
+
+def flip_on_card(data: bytes, device=None) -> Dict[str, Any]:
+    """A ``num_gpus=1`` task body that takes a C++ task's ``bytes``
+    result: the bytes go to this process's card (``device`` None; it
+    raises without one, ``device="cpu"`` asks for the CPU) as a uint8
+    tensor, are reversed and summed there, and come back with the
+    worker's lease and card."""
+    import torch
+
+    from .device import resolve_device
+
+    device = resolve_device(device)
+    t = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(device)
+    flipped, total = t.flip(0).cpu(), int(t.sum(dtype=torch.int64))
+    return {"value": bytes(flipped.numpy()), "sum": total,
+            "device": str(t.device),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_uuid": (_device_uuid(t.device)
+                            if t.is_cuda else None)}
